@@ -1,0 +1,23 @@
+"""PyTorch + CUDA port of handel_tpu: BLS-over-BN254 batch verification.
+
+The JAX package (`handel_tpu`) stays the reference. This package imports
+torch and numpy, never jax and nothing of `handel_tpu`; module names mirror
+the reference so each counterpart is easy to find:
+
+  ops/bn254_ref.py       scalar BN254 oracle (a copy of the reference's)
+  ops/fp.py              Field: limb tensors, carry-lookahead add/sub, and the
+                         Montgomery multiply (CUDA kernel on the card, its
+                         plain PyTorch version on the CPU)
+  ops/tower.py           Fp2/Fp6/Fp12 with batch stacking
+  ops/curve.py           G1/G2 complete projective formulas, sums, scans
+  ops/pairing.py         batched optimal-ate pairing and pairing check
+  models/bn254.py        host scheme: keys, sign, wire formats
+  models/bn254_torch.py  BN254Device (range and dense launch classes),
+                         BN254TorchConstructor, BN254TorchScheme
+  csrc/, kernels/        the hand-written CUDA sources and their nvcc build
+  core/                  bitset, scheme interfaces, validation counters
+                         (the parts of the reference's core/ the above use)
+  utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`.
+"""

@@ -1,0 +1,659 @@
+"""BLS-over-BN254 with verification on the card — counterpart of
+handel_tpu/models/bn254_jax.py (per-candidate checking, one device).
+
+A launch verifies up to `batch_size` candidate aggregate signatures at once:
+
+  1. the aggregate public key of each candidate, from the device-resident
+     registry bank: the **range** class takes prefix[hi] - prefix[lo] from
+     the prefix table and subtracts the few missing signers of the hull; the
+     **dense** class unpacks the bitset words on the card and tree-sums the
+     masked registry (ops/curve.py `masked_sum`);
+  2. one batched product-of-pairings check
+     e(H(m), X_j) * e(-S_j, B2) == 1 for every candidate j, with one shared
+     final exponentiation (ops/pairing.py `pairing_check`).
+
+Keys, signatures and wire formats are the host objects of models/bn254.py.
+The host packer builds each launch in pinned staging buffers that rotate
+over `stage_sets` sets; a CUDA event per set fences a set against reuse
+while a launch that reads it may still be copying from it.
+
+Not in this slice (later work): the RLC batch check, meshes of several
+cards, batched signature combines, registry epoch staging, multi-message
+launches and the host failover breaker.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import namedtuple
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as nnf
+
+from handel_tpu_torch.core.bitset import BitSet
+from handel_tpu_torch.models.bn254 import (
+    BN254Constructor,
+    BN254PublicKey,
+    BN254Scheme,
+    hash_to_g1,
+)
+from handel_tpu_torch.ops import bn254_ref as bn
+from handel_tpu_torch.ops.curve import BN254Curves
+from handel_tpu_torch.ops.pairing import BN254Pairing
+
+# Device-input arrays of one launch, as the packer hands them to dispatch:
+# kind "range" = prefix-table path with a miss_k-wide hole patch, "dense" =
+# masked registry sum; fields the kind does not use are None. `words` is
+# the (C, W) uint64 bitset-word matrix (the dense launch unpacks it on the
+# card); only the loop oracle fills the host-side (n, C) `mask`. Plans from
+# `_pack_requests` view rotated staging buffers and stay valid until the
+# rotation wraps back onto their set; `_pack_requests_loop` plans own theirs.
+LaunchPlan = namedtuple(
+    "LaunchPlan",
+    "kind miss_k lo hi miss_idx miss_ok words mask sig_x sig_y valid",
+)
+
+
+def validate_batch_check(mode: str) -> str:
+    """The port runs "per_candidate" checking; "rlc" is a later slice."""
+    if mode == "rlc":
+        raise NotImplementedError(
+            "batch_check='rlc' is not ported yet: use 'per_candidate'"
+        )
+    if mode != "per_candidate":
+        raise ValueError(
+            f"unknown batch_check {mode!r}: valid choices are 'per_candidate' "
+            f"and 'rlc' (not ported yet)"
+        )
+    return mode
+
+
+class _StagingSet:
+    """One set of host staging buffers for the launch packer.
+
+    Each buffer is a torch tensor (pinned when the engine runs on the card)
+    with a numpy view that the packer writes. `fence` is the CUDA event
+    recorded after the last launch that read this set: before the rotation
+    rewrites the set, the packer waits on it, so an asynchronous copy still
+    reading these buffers is never overwritten (backpressure, never
+    corruption). One thread packs and dispatches."""
+
+    __slots__ = ("tensors", "words", "valid", "lo", "hi", "miss", "miss_ok",
+                 "sig_x", "sig_y", "fence")
+
+    def __init__(self, n: int, C: int, miss_cap: int, nlimbs: int, pin: bool):
+        shapes = {
+            "words": ((C, (n + 63) // 64), torch.int64),
+            "valid": ((C,), torch.bool),
+            "lo": ((C,), torch.int32),
+            "hi": ((C,), torch.int32),
+            "miss": ((miss_cap, C), torch.int64),
+            "miss_ok": ((miss_cap, C), torch.bool),
+            "sig_x": ((nlimbs, C), torch.int32),
+            "sig_y": ((nlimbs, C), torch.int32),
+        }
+        self.tensors = {
+            k: torch.zeros(s, dtype=d, pin_memory=pin) for k, (s, d) in shapes.items()
+        }
+        for k, t in self.tensors.items():
+            setattr(self, k, t.numpy())
+        self.words = self.words.view(np.uint64)  # bitset words, as BitSet keeps them
+        self.fence = None
+
+
+class _WarmupSig:
+    """Signature stand-in for warmup launches (the packer reads `.point`)."""
+
+    __slots__ = ("point",)
+
+    def __init__(self, point):
+        self.point = point
+
+
+class RegistryBank:
+    """The registry on the device: affine G2 key coordinates as Fp2 pairs of
+    (nlimbs, n) int32 Montgomery limbs, committed once, plus the prefix
+    table (slot i = sum of keys [0, i), affine, with an infinity flag), built
+    at the first range launch when not given."""
+
+    __slots__ = ("reg_x", "reg_y", "n", "prefix")
+
+    def __init__(self, reg_x, reg_y, prefix=None):
+        self.reg_x, self.reg_y = reg_x, reg_y
+        self.n = reg_x[0].shape[1]
+        self.prefix = prefix
+
+
+def bank_from_numpy(reg_x, reg_y, prefix=None, device=None) -> RegistryBank:
+    """A bank from limb arrays as the JAX package's BN254Device holds them:
+    `reg_x`/`reg_y` are Fp2 pairs of (nlimbs, n) uint32 arrays (its
+    `_reg_x`/`_reg_y` through np.asarray), `prefix` optionally its
+    ((x0, x1), (y0, y1), inf) prefix tuple. The limbs are < 2^16, so the
+    int32 copy holds the same bits."""
+    from handel_tpu_torch.utils.torchenv import resolve_device
+
+    dev = resolve_device(device)
+
+    def limbs(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
+
+    def f2(pair):
+        return (limbs(pair[0]), limbs(pair[1]))
+
+    if prefix is not None:
+        (px, py, inf) = prefix
+        prefix = (f2(px), f2(py), torch.from_numpy(np.array(inf, dtype=bool)).to(dev))
+    return RegistryBank(f2(reg_x), f2(reg_y), prefix)
+
+
+class BN254Device:
+    """Verification engine bound to one registry on one device.
+
+    `device` is where the launches run: the card unless the caller asks for
+    "cpu" (then every kernel call takes its plain PyTorch version). `bank`
+    replaces packing `registry_pubkeys` (see `bank_from_numpy`)."""
+
+    ref = bn
+    Curves = BN254Curves
+    Pairing = BN254Pairing
+    _hash_to_g1 = staticmethod(hash_to_g1)
+
+    # missing-signer patch width cap: candidates whose range hull has more
+    # holes than this fall back to the dense class
+    MISS_CAP = 64
+    # dispatch-ahead bound for batch_verify: chunks in flight ahead of fetch
+    MAX_DISPATCH_AHEAD = 4
+
+    def __init__(
+        self,
+        registry_pubkeys: Sequence[BN254PublicKey] | None = None,
+        batch_size: int = 16,
+        curves: BN254Curves | None = None,
+        device=None,
+        batch_check: str = "per_candidate",
+        bank: RegistryBank | None = None,
+    ):
+        self.batch_check = validate_batch_check(batch_check)
+        self.curves = curves or self.Curves(device=device)
+        self.device = self.curves.device
+        self.pairing = self.Pairing(self.curves)
+        self.batch_size = batch_size
+        T = self.curves.T
+        if bank is None:
+            pts = [pk.point for pk in registry_pubkeys]
+            if any(p is None for p in pts):
+                raise ValueError("registry public keys must be valid G2 points")
+            bank = RegistryBank(
+                T.f2_pack([p[0] for p in pts]), T.f2_pack([p[1] for p in pts])
+            )
+        elif bank.reg_x[0].device != self.device:
+            raise ValueError(f"bank on {bank.reg_x[0].device}, engine on {self.device}")
+        self.bank = bank
+        self.n = bank.n
+        self._b2 = (T.f2_pack([self.ref.G2_GEN[0]]), T.f2_pack([self.ref.G2_GEN[1]]))
+        self._h_cache: dict[bytes, tuple] = {}
+        self.stage_sets = 2
+        pin = self.device.type == "cuda"
+        self._stage = [
+            _StagingSet(self.n, batch_size, self.MISS_CAP, self.curves.F.nlimbs, pin)
+            for _ in range(self.stage_sets)
+        ]
+        self._stage_idx = 0
+        # host-cost counters: pack = building the plan in staging, dispatch =
+        # the device handoff and the asynchronous enqueue that follows it
+        self.host_pack_ms = 0.0
+        self.host_pack_launches = 0
+        self.host_dispatch_ms = 0.0
+        self.host_dispatch_launches = 0
+
+    # -- registry bank and prefix table ---------------------------------------
+
+    @property
+    def _prefix(self):
+        if self.bank.prefix is None:
+            self.bank.prefix = self._build_prefix(self.bank.reg_x, self.bank.reg_y)
+        return self.bank.prefix
+
+    def _build_prefix(self, reg_x, reg_y):
+        """Exclusive prefix table: inclusive prefix scan of the registry,
+        batch affine conversion, one infinity slot in front."""
+        g2 = self.curves.g2
+        x, y, inf = g2.to_affine(g2.prefix_scan(g2.from_affine(reg_x, reg_y)))
+        pad = lambda a: nnf.pad(a, (1, 0))  # noqa: E731
+        one = torch.ones((1,), dtype=torch.bool, device=inf.device)
+        return (pad(x[0]), pad(x[1])), (pad(y[0]), pad(y[1])), torch.cat([one, inf])
+
+    # -- the launch classes ------------------------------------------------------
+
+    def _pairing_tail(self, agg, sig_x, sig_y, h_x, h_y, valid):
+        """Affine-convert the aggregates and run the batched
+        product-of-pairings check e(H, X_j) * e(-S_j, B2) == 1."""
+        g2, F = self.curves.g2, self.curves.F
+        agg_inf = g2.is_infinity(agg)
+        qx, qy, _ = g2.to_affine(agg)
+        (bx0, bx1), (by0, by1) = self._b2
+        ok_lane = valid & ~agg_inf
+        cat = lambda a, b: torch.cat([a, b], dim=1)  # noqa: E731
+        px = cat(h_x.expand_as(sig_x), sig_x)
+        py = cat(h_y.expand_as(sig_y), F.neg(sig_y))
+        qx2 = (cat(qx[0], bx0.expand_as(qx[0])), cat(qx[1], bx1.expand_as(qx[1])))
+        qy2 = (cat(qy[0], by0.expand_as(qy[0])), cat(qy[1], by1.expand_as(qy[1])))
+        lane_mask = torch.cat([ok_lane, ok_lane])
+        checks = self.pairing.pairing_check(
+            (px, py), (qx2, qy2), lane_mask, self.batch_size
+        )
+        return checks & ok_lane
+
+    def _unpack_words(self, words32, valid):
+        """(C, 2W) int32 bitset words -> (n*C,) block-major candidate mask,
+        on the device: a gather and a shift per registry index. int32 shifts
+        are arithmetic, so every shift is masked with & 1."""
+        idx = torch.arange(self.n, device=words32.device)
+        w = words32[:, idx // 32]  # (C, n)
+        bits = ((w >> (idx % 32).to(torch.int32)) & 1) != 0
+        bits = bits & valid[:, None]  # invalid lanes contribute nothing
+        return bits.T.reshape(-1)  # block i = registry key i across C lanes
+
+    def _verify_batch(self, reg_x, reg_y, words32, sig_x, sig_y, h_x, h_y, valid):
+        """Dense class: masked G2 tree-sum over the registry tiled across the
+        candidates, then the pairing tail. Returns (C,) verdicts."""
+        C = self.batch_size
+        g2 = self.curves.g2
+        mask = self._unpack_words(words32, valid)
+        tile = lambda a: a.repeat_interleave(C, dim=1)  # noqa: E731  (L, n) -> (L, n*C)
+        P2 = g2.from_affine(
+            (tile(reg_x[0]), tile(reg_x[1])), (tile(reg_y[0]), tile(reg_y[1]))
+        )
+        agg = g2.masked_sum(P2, mask, self.n)
+        return self._pairing_tail(agg, sig_x, sig_y, h_x, h_y, valid)
+
+    def _gather_prefix(self, prefix, idx):
+        """(C,) indices -> projective G2 batch from the prefix table."""
+        g2 = self.curves.g2
+        (x0, x1), (y0, y1), inf = prefix
+        idx = idx.long()
+        take = lambda a: a.index_select(1, idx)  # noqa: E731
+        P = g2.from_affine((take(x0), take(x1)), (take(y0), take(y1)))
+        return g2.select(inf.index_select(0, idx), g2.infinity(idx.shape[0]), P)
+
+    def _range_aggregate(self, lo, hi, miss_idx, miss_ok, prefix, reg_x, reg_y, miss_k):
+        """Aggregate key per candidate (projective) =
+        prefix[hi] - prefix[lo] - sum(missing signers in the hull)."""
+        g2 = self.curves.g2
+        hull = g2.add(
+            self._gather_prefix(prefix, hi), g2.neg(self._gather_prefix(prefix, lo))
+        )
+        if miss_k:
+            take = lambda a: a.index_select(1, miss_idx)  # noqa: E731
+            Pm = g2.from_affine(
+                (take(reg_x[0]), take(reg_x[1])), (take(reg_y[0]), take(reg_y[1]))
+            )
+            hull = g2.add(hull, g2.neg(g2.masked_sum(Pm, miss_ok, miss_k)))
+        return hull
+
+    def _verify_batch_range(
+        self, lo, hi, miss_idx, miss_ok, sig_x, sig_y, h_x, h_y, valid,
+        prefix, reg_x, reg_y, miss_k,
+    ):
+        """Range class: lo/hi (C,) prefix-table indices, miss_idx/miss_ok
+        (miss_k*C,) block-major registry indices of the holes and their
+        validity. Returns (C,) verdicts."""
+        hull = self._range_aggregate(
+            lo, hi, miss_idx, miss_ok, prefix, reg_x, reg_y, miss_k
+        )
+        return self._pairing_tail(hull, sig_x, sig_y, h_x, h_y, valid)
+
+    # -- host entry points -------------------------------------------------------
+
+    def _h_point(self, msg: bytes):
+        """H(msg) as (nlimbs, 1) device limb columns, hashed once per message."""
+        cached = self._h_cache.get(msg)
+        if cached is None:
+            h = self._hash_to_g1(msg)
+            F = self.curves.F
+            cached = self._h_cache[msg] = (F.pack([h[0]]), F.pack([h[1]]))
+        return cached
+
+    def batch_verify(self, msg: bytes, requests) -> list[bool]:
+        """Verify (bitset, aggregate signature) candidates, batch_size per
+        launch; a launch is dispatched before earlier verdicts are fetched,
+        at most MAX_DISPATCH_AHEAD ahead of the fetch cursor."""
+        out: list[bool] = []
+        window: list = []
+        for i in range(0, len(requests), self.batch_size):
+            if len(window) >= self.MAX_DISPATCH_AHEAD:
+                out.extend(self.fetch(window.pop(0)))
+            window.append(self.dispatch(msg, requests[i : i + self.batch_size]))
+        for h in window:
+            out.extend(self.fetch(h))
+        return out
+
+    def dispatch(self, msg, requests):
+        """Enqueue one launch (<= batch_size candidates); returns a handle
+        for `fetch`. On the card the work is in flight when this returns."""
+        return (self._dispatch_one(msg, requests), len(requests))
+
+    def fetch(self, handle) -> list[bool]:
+        """Wait for a dispatched launch's verdicts; host-ordered."""
+        verdicts, k = handle
+        return [bool(v) for v in verdicts[:k].cpu().tolist()]
+
+    def warmup(self) -> int:
+        """Build and load the kernel library and the prefix table with one
+        range launch, so the first round pays neither. Returns the number
+        of launches issued."""
+        bs = BitSet(self.n)
+        for i in range(min(self.n, 2)):
+            bs.set(i, True)
+        self.fetch(
+            self.dispatch(b"bn254-device-warmup", [(bs, _WarmupSig(self.ref.G1_GEN))])
+        )
+        self.reset_host_counters()
+        return 1
+
+    def reset_host_counters(self) -> None:
+        self.host_pack_ms = 0.0
+        self.host_pack_launches = 0
+        self.host_dispatch_ms = 0.0
+        self.host_dispatch_launches = 0
+
+    # -- the launch packer -------------------------------------------------------
+
+    @staticmethod
+    def _pack_sig_limbs(F, pts, out):
+        """Pack G1 coordinate limbs into staging, converting each distinct
+        point object once (one aggregate is often fanned across lanes)."""
+        uniq: dict[int, int] = {}
+        inv = np.empty((len(pts),), np.int64)
+        upts: list = []
+        for j, p in enumerate(pts):
+            i = uniq.get(id(p))
+            if i is None:
+                i = uniq[id(p)] = len(upts)
+                upts.append(p)
+            inv[j] = i
+        out.sig_x[:] = F.pack_batch_np([p[0] for p in upts])[:, inv]
+        out.sig_y[:] = F.pack_batch_np([p[1] for p in upts])[:, inv]
+
+    _U64_ONES = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+    @classmethod
+    def _ones_below(cls, c):
+        """(1 << c) - 1 for per-element widths c in [0, 64]."""
+        shift = np.minimum(c, np.uint64(63))
+        return np.where(c >= 64, cls._U64_ONES, (np.uint64(1) << shift) - np.uint64(1))
+
+    def _pack_requests(self, requests) -> LaunchPlan:
+        """Vectorized launch packing: requests -> staging arrays.
+
+        Bitsets (anything with `len()` and `words()`, the JAX package's
+        BitSet included) hand their uint64 words to the staging set; the
+        cardinality, the range bounds and the holes come from word-level
+        numpy. Bit-identical to `_pack_requests_loop`, the readable oracle."""
+        C = self.batch_size
+        n = self.n
+        k = len(requests)
+        self._stage_idx = (self._stage_idx + 1) % len(self._stage)
+        st = self._stage[self._stage_idx]
+        if st.fence is not None:
+            # the last launch that read this set must be past its copies
+            st.fence.synchronize()
+            st.fence = None
+        words = st.words
+        words[:] = 0
+        valid = st.valid
+        valid[:] = False
+        sig_pts: list = []
+        for j, (bs, sig) in enumerate(requests):
+            if len(bs) != n:
+                raise ValueError("bitset length != registry size")
+            words[j, :] = bs.words()
+            sig_pts.append(getattr(sig, "point", None))
+
+        card = np.bitwise_count(words).sum(axis=1, dtype=np.int64)
+        if k:
+            valid[:k] = (card[:k] > 0) & np.fromiter(
+                (p is not None for p in sig_pts), bool, count=k
+            )
+        words[~valid] = 0  # invalid lanes contribute nothing
+
+        # range bounds: first/last nonzero word per lane, then a trailing-
+        # zero / leading-bit scan of those edge words
+        wnz = words != 0
+        nonempty = wnz.any(axis=1)
+        W = words.shape[1]
+        rows = np.arange(C)
+        fw = wnz.argmax(axis=1)
+        lw = (W - 1) - wnz[:, ::-1].argmax(axis=1)
+        wf = words[rows, fw]
+        tz = np.bitwise_count((wf & (~wf + np.uint64(1))) - np.uint64(1)).astype(np.int64)
+        v = words[rows, lw].copy()  # leading bit: smear right, popcount - 1
+        for s in (1, 2, 4, 8, 16, 32):
+            v |= v >> np.uint64(s)
+        msb = np.bitwise_count(v).astype(np.int64) - 1
+        lo, hi = st.lo, st.hi
+        lo[:] = np.where(nonempty, fw * 64 + tz, 0)
+        hi[:] = np.where(nonempty, lw * 64 + msb + 1, 0)  # one past the last bit
+        holes = (hi.astype(np.int64) - lo) - np.where(valid, card, 0)
+        max_holes = int(holes.max())
+
+        pts = [pt if valid[j] else self.ref.G1_GEN for j, pt in enumerate(sig_pts)]
+        pts += [self.ref.G1_GEN] * (C - k)  # pad lanes
+        self._pack_sig_limbs(self.curves.F, pts, st)
+
+        if max_holes > self.MISS_CAP:  # dense class: the words are the input
+            return LaunchPlan(
+                "dense", 0, None, None, None, None, words, None,
+                st.sig_x, st.sig_y, valid,
+            )
+
+        # two patch-width classes, as in the reference
+        miss_k = 8 if max_holes <= 8 else self.MISS_CAP
+        miss_idx = st.miss[:miss_k]
+        miss_ok = st.miss_ok[:miss_k]
+        miss_idx[:] = 0
+        miss_ok[:] = False
+        if max_holes > 0:
+            # hole bits = ~words inside each lane's [lo, hi) hull
+            base = np.arange(W, dtype=np.int64) * 64
+            lo_c = np.clip(lo.astype(np.int64)[:, None] - base, 0, 64)
+            hi_c = np.clip(hi.astype(np.int64)[:, None] - base, 0, 64)
+            hull = self._ones_below(hi_c.astype(np.uint64)) ^ self._ones_below(
+                lo_c.astype(np.uint64)
+            )
+            missw = hull & ~words
+            mbits = np.unpackbits(
+                missw.view(np.uint8), axis=1, count=n, bitorder="little"
+            ).view(np.bool_)
+            rj, cj = np.nonzero(mbits)  # row-major: per candidate, ascending
+            if rj.size:
+                counts = mbits.sum(axis=1)
+                offs = np.concatenate(([0], np.cumsum(counts)[:-1]))
+                pos = np.arange(rj.size) - offs[rj]
+                miss_idx[pos, rj] = cj
+                miss_ok[pos, rj] = True
+        return LaunchPlan(
+            "range", miss_k, lo, hi, miss_idx, miss_ok, words, None,
+            st.sig_x, st.sig_y, valid,
+        )
+
+    def _pack_requests_loop(self, requests) -> LaunchPlan:
+        """The per-candidate packer, kept as the oracle of `_pack_requests`.
+        Allocates fresh numpy arrays (no staging)."""
+        C = self.batch_size
+        F = self.curves.F
+        sig_pts = []
+        valid = np.zeros((C,), dtype=bool)
+        sets: list[np.ndarray] = []
+        for j, (bs, sig) in enumerate(requests):
+            if len(bs) != self.n:
+                raise ValueError("bitset length != registry size")
+            idx = np.fromiter(bs.indices(), dtype=np.int64)
+            sig_pt = getattr(sig, "point", None)
+            if idx.size and sig_pt is not None:
+                valid[j] = True
+                sig_pts.append(sig_pt)
+            else:
+                sig_pts.append(self.ref.G1_GEN)  # placeholder, lane masked out
+            sets.append(idx)
+        sig_pts += [self.ref.G1_GEN] * (C - len(sig_pts))  # pad lanes
+        sig_x = F.pack_batch_np([p[0] for p in sig_pts])
+        sig_y = F.pack_batch_np([p[1] for p in sig_pts])
+
+        holes = [
+            int(idx[-1] - idx[0] + 1 - idx.size) if v and idx.size else 0
+            for idx, v in zip(sets, valid)
+        ]
+        if max(holes, default=0) > self.MISS_CAP:
+            mask = np.zeros((self.n, C), dtype=bool)
+            for j, idx in enumerate(sets):
+                if valid[j] and idx.size:
+                    mask[idx, j] = True
+            return LaunchPlan(
+                "dense", 0, None, None, None, None, None, mask, sig_x, sig_y, valid,
+            )
+        lo = np.zeros((C,), np.int32)
+        hi = np.zeros((C,), np.int32)
+        miss_k = 8 if max(holes, default=0) <= 8 else self.MISS_CAP
+        miss_idx = np.zeros((miss_k, C), np.int64)
+        miss_ok = np.zeros((miss_k, C), dtype=bool)
+        for j, idx in enumerate(sets):
+            if not valid[j] or not idx.size:
+                continue
+            lo[j] = idx[0]
+            hi[j] = idx[-1] + 1
+            missing = np.setdiff1d(
+                np.arange(idx[0], idx[-1] + 1), idx, assume_unique=True
+            )
+            miss_idx[: missing.size, j] = missing
+            miss_ok[: missing.size, j] = True
+        return LaunchPlan(
+            "range", miss_k, lo, hi, miss_idx, miss_ok, None, None, sig_x, sig_y, valid,
+        )
+
+    def _stage_plan(self, plan):
+        """Copy one plan's staging views to the device (asynchronously from
+        pinned memory on the card; the staging fence keeps the buffers
+        alive). Returns the per-kind device-argument tuple."""
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(a).to(dev, non_blocking=True)
+
+        if plan.kind == "range":
+            return (
+                put(plan.lo), put(plan.hi),
+                put(plan.miss_idx.reshape(-1)), put(plan.miss_ok.reshape(-1)),
+                put(plan.sig_x), put(plan.sig_y), put(plan.valid),
+            )
+        words32 = put(plan.words.view(np.int64)).view(torch.int32)  # (C, 2W)
+        return (words32, put(plan.sig_x), put(plan.sig_y), put(plan.valid))
+
+    def _run_plan(self, plan, staged, h_x, h_y):
+        bank = self.bank
+        if plan.kind == "range":
+            lo, hi, miss_idx, miss_ok, sig_x, sig_y, valid = staged
+            return self._verify_batch_range(
+                lo, hi, miss_idx, miss_ok, sig_x, sig_y, h_x, h_y, valid,
+                self._prefix, bank.reg_x, bank.reg_y, plan.miss_k,
+            )
+        words32, sig_x, sig_y, valid = staged
+        return self._verify_batch(
+            bank.reg_x, bank.reg_y, words32, sig_x, sig_y, h_x, h_y, valid
+        )
+
+    def _dispatch_one(self, msg, requests):
+        t0 = time.perf_counter()
+        plan = self._pack_requests(requests)
+        t1 = time.perf_counter()
+        self.host_pack_ms += (t1 - t0) * 1000.0
+        self.host_pack_launches += 1
+        h_x, h_y = self._h_point(msg)
+        verdicts = self._run_plan(plan, self._stage_plan(plan), h_x, h_y)
+        if self.device.type == "cuda":
+            # fence the staging set this launch reads: _pack_requests waits
+            # on it before the rotation wraps back onto these buffers
+            fence = torch.cuda.Event()
+            fence.record(torch.cuda.current_stream(self.device))
+            self._stage[self._stage_idx].fence = fence
+        self.host_dispatch_ms += (time.perf_counter() - t1) * 1000.0
+        self.host_dispatch_launches += 1
+        return verdicts
+
+
+class BN254TorchConstructor(BN254Constructor):
+    """Constructor whose `batch_verify` runs on the port's device engine.
+
+    The engine is built from the pubkey sequence of the first call (Handel
+    passes the same registry list every time) or eagerly by `prepare()`.
+    Marshal/unmarshal and single-signature verify stay on the host."""
+
+    Device = BN254Device
+
+    def __init__(
+        self,
+        batch_size: int = 16,
+        device=None,
+        warmup: bool = True,
+        batch_check: str = "per_candidate",
+        curves: BN254Curves | None = None,
+    ):
+        self.batch_size = batch_size
+        self.batch_check = validate_batch_check(batch_check)
+        self.curves = curves or self.Device.Curves(device=device)
+        self.warmup = warmup
+        self._device: BN254Device | None = None
+        self._device_for: int | None = None
+
+    def prepare(self, pubkeys: Sequence[BN254PublicKey]) -> BN254Device:
+        self._device = self.Device(
+            pubkeys,
+            batch_size=self.batch_size,
+            curves=self.curves,
+            batch_check=self.batch_check,
+        )
+        if self.warmup:
+            self._device.warmup()
+        # hold the list itself: the id() key below is valid only while the
+        # original object lives
+        self._reg_list = pubkeys
+        self._device_for = id(pubkeys)
+        self._reg_keys = [pk.point for pk in pubkeys]
+        return self._device
+
+    def _device_of(self, pubkeys) -> BN254Device:
+        if self._device is None or self._device.n != len(pubkeys):
+            self.prepare(pubkeys)
+        elif self._device_for != id(pubkeys):
+            # same length, new list object: a full content check once per
+            # list identity (a same-size registry after churn must not
+            # verify against stale keys)
+            if [pk.point for pk in pubkeys] == self._reg_keys:
+                self._reg_list = pubkeys
+                self._device_for = id(pubkeys)
+            else:
+                self.prepare(pubkeys)
+        return self._device
+
+    def batch_verify(self, msg, pubkeys, requests) -> list[bool]:
+        return self._device_of(pubkeys).batch_verify(msg, requests)
+
+
+class BN254TorchScheme(BN254Scheme):
+    """Keygen facade for harnesses: the host scheme's keygen and wire formats
+    with the device-verification constructor."""
+
+    def __init__(
+        self,
+        batch_size: int = 16,
+        device=None,
+        warmup: bool = True,
+        batch_check: str = "per_candidate",
+    ):
+        self.constructor = BN254TorchConstructor(
+            batch_size=batch_size, device=device, warmup=warmup,
+            batch_check=batch_check,
+        )
+

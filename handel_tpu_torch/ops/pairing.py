@@ -1,0 +1,221 @@
+"""Batched optimal-ate pairing for BN254 — counterpart of handel_tpu/ops/pairing.py.
+
+* Inversion-free Miller loop: the accumulator T runs in homogeneous
+  projective coordinates on the twist E'(Fp2); each step emits a sparse line
+  with Fp2 coefficients in the (1, w, w^3) slots, scaled by Fp2 factors that
+  the final exponentiation kills.
+* The loop runs over the static bits of 6u+2 (MSB first, the top bit taken
+  by the initialization). The reference computes the doubling and the
+  addition at every step and selects, because its `lax.scan` body is traced
+  once; here the bit is a public Python constant, so only the taken branch
+  runs. The result is bit-identical and the card sees fewer launches.
+* Every step is a handful of stacked `Field.mul` calls (ops/tower.py), so
+  the Montgomery kernel sees wide launches even at small batches.
+* A (B,) validity mask selects f = 1 for masked lanes (infinity, padding).
+* `pairing_check` multiplies each candidate's Miller values and runs one
+  shared final exponentiation on the product.
+
+Positional (CIOS) only: the residue-resident mode of the reference belongs
+to the RNS backend, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+from handel_tpu_torch.ops import bn254_ref as bn
+from handel_tpu_torch.ops.curve import BN254Curves, _tree_map
+
+# MSB-first bits of the ate loop count 6u+2, top bit dropped (consumed by the
+# Miller-loop initialization T = Q, f = 1)
+_ATE_BITS = [int(c) for c in bin(bn.ATE_LOOP_COUNT)[3:]]
+
+
+class BN254Pairing:
+    """Batched optimal-ate pairing over the shared Field/Tower/Curves stack."""
+
+    def __init__(self, curves: BN254Curves | None = None, device=None):
+        self.curves = curves or BN254Curves(device=device)
+        self.F = self.curves.F
+        self.T = self.curves.T
+        # psi-Frobenius constants of the ate correction points
+        # (bn254_ref.miller_loop_projective: gamma_2 for x, gamma_3 for y)
+        self._g2c = self.curves.params._GAMMA[2]
+        self._g3c = self.curves.params._GAMMA[3]
+
+    # -- small helpers -------------------------------------------------------
+
+    def _mm(self, pairs):
+        """Stack independent Fp2 multiplications into one f2_mul call."""
+        T = self.T
+        lhs = T._f2_stack([p[0] for p in pairs])
+        rhs = T._f2_stack([p[1] for p in pairs])
+        return T._f2_unstack(T.f2_mul(lhs, rhs), len(pairs))
+
+    @staticmethod
+    def _dbl_n(T, a, k: int):
+        """a * 2^k by repeated addition."""
+        for _ in range(k):
+            a = T.f2_add(a, a)
+        return a
+
+    def _line_f12(self, line, batch):
+        """Sparse line (yp-term, xp-term, constant) -> full Fp12 element at
+        w-degree slots 0, 1, 3 (D-twist untwist)."""
+        c_yp, c_xp, c_const = line
+        z = self.T.f2_zero(batch)
+        return ((c_yp, z, z), (c_xp, c_const, z))
+
+    # -- Miller-loop steps (bn254_ref.miller_loop_projective dbl/add) --------
+
+    def _dbl_step(self, Tpt, xp, yp):
+        """Doubling step: new T and the tangent line at T evaluated at
+        P = (xp, yp), scaled by 2YZ^3."""
+        Tw = self.T
+        X, Y, Z = Tpt
+        XX, YY, YZ = self._mm([(X, X), (Y, Y), (Y, Z)])
+        n = Tw.f2_add(Tw.f2_add(XX, XX), XX)  # 3X^2
+        d = Tw.f2_add(YZ, YZ)  # 2YZ
+        nn, dd, YYZ, YZZ, nZ, nX = self._mm(
+            [(n, n), (d, d), (YY, Z), (YZ, Z), (n, Z), (n, X)]
+        )
+        XYYZ, ddd = self._mm([(X, YYZ), (dd, d)])
+        e = Tw.f2_sub(nn, self._dbl_n(Tw, XYYZ, 3), 11)  # n^2 - 8XY^2Z
+        XYYZ12 = Tw.f2_add(self._dbl_n(Tw, XYYZ, 3), self._dbl_n(Tw, XYYZ, 2))
+        zero = Tw.f2_zero(xp.shape[1])[0]
+        X3, t, YYZ2, c0, cw = self._mm(
+            [
+                (e, d),
+                (n, Tw.f2_sub(XYYZ12, nn, 8)),  # n*(12XY^2Z - n^2)
+                (YYZ, YYZ),  # Y^4 Z^2
+                (YZZ, (yp, zero)),
+                (nZ, (xp, zero)),
+            ]
+        )
+        Y3 = Tw.f2_sub(t, self._dbl_n(Tw, YYZ2, 3), 11)
+        line = (
+            Tw.f2_add(c0, c0),  # 2YZ^2 * yp
+            Tw.f2_neg(cw, 8),  # -3X^2 Z * xp
+            Tw.f2_sub(nX, Tw.f2_add(YYZ, YYZ), 9),  # 3X^3 - 2Y^2 Z
+        )
+        return (X3, Y3, ddd), line
+
+    def _add_step(self, Tpt, Q, xp, yp):
+        """Mixed-addition step T + Q (Q affine) and the line through them
+        evaluated at P, scaled by d = x2 Z - X."""
+        Tw = self.T
+        X, Y, Z = Tpt
+        x2, y2 = Q
+        y2Z, x2Z = self._mm([(y2, Z), (x2, Z)])
+        n = Tw.f2_sub(y2Z, Y, 12)
+        d = Tw.f2_sub(x2Z, X, 8)
+        zero = Tw.f2_zero(xp.shape[1])[0]
+        dd, nn, nx2, dy2, c0, cw = self._mm(
+            [(d, d), (n, n), (n, x2), (d, y2), (d, (yp, zero)), (n, (xp, zero))]
+        )
+        nnZ, Xdd, ddd, x2Zdd = self._mm(
+            [(nn, Z), (Tw.f2_add(X, x2Z), dd), (dd, d), (x2Z, dd)]
+        )
+        e = Tw.f2_sub(nnZ, Xdd, 8)
+        X3, t, y2Zddd, Z3 = self._mm(
+            [(e, d), (n, Tw.f2_sub(x2Zdd, e, 9)), (y2Z, ddd), (Z, ddd)]
+        )
+        Y3 = Tw.f2_sub(t, y2Zddd, 8)
+        line = (c0, Tw.f2_neg(cw, 8), Tw.f2_sub(nx2, dy2, 8))
+        return (X3, Y3, Z3), line
+
+    # -- Miller loop ---------------------------------------------------------
+
+    def miller_loop(self, p, q, mask=None):
+        """Batched Miller loop. p: (xp, yp) base-field limb tensors (G1
+        affine); q: (x, y) Fp2 pairs (G2' affine); mask: optional (B,) bool,
+        lanes with False return f = 1. Returns an Fp12 batch."""
+        Tw = self.T
+        xp, yp = p
+        xq, yq = q
+        batch = xp.shape[1]
+        Tpt = (xq, yq, Tw.f2_one(batch))
+        f = Tw.f12_one(batch)
+        for bit in _ATE_BITS:
+            f = Tw.f12_sqr(f)
+            Tpt, line = self._dbl_step(Tpt, xp, yp)
+            f = Tw.f12_mul(f, self._line_f12(line, batch))
+            if bit:
+                Tpt, line = self._add_step(Tpt, (xq, yq), xp, yp)
+                f = Tw.f12_mul(f, self._line_f12(line, batch))
+        f = self._miller_tail(Tpt, f, (xq, yq), xp, yp, batch)
+        if mask is not None:
+            f = Tw.f12_select(mask, f, Tw.f12_one(batch))
+        return f
+
+    def _miller_tail(self, Tpt, f, q, xp, yp, batch):
+        """BN ate corrections: add psi(Q) and -psi^2(Q) on the twist."""
+        Tw = self.T
+        xq, yq = q
+        g2 = Tw.f2_constant(self._g2c, batch)
+        g3 = Tw.f2_constant(self._g3c, batch)
+        q1x, q1y = self._mm([(Tw.f2_conj(xq, 0), g2), (Tw.f2_conj(yq, 0), g3)])
+        q2x, q2y = self._mm([(Tw.f2_conj(q1x, 8), g2), (Tw.f2_conj(q1y, 8), g3)])
+        q2y = Tw.f2_neg(q2y, 8)  # q2 = -psi^2(Q)
+        Tpt, line = self._add_step(Tpt, (q1x, q1y), xp, yp)
+        f = Tw.f12_mul(f, self._line_f12(line, batch))
+        _, line = self._add_step(Tpt, (q2x, q2y), xp, yp)
+        return Tw.f12_mul(f, self._line_f12(line, batch))
+
+    # -- final exponentiation ------------------------------------------------
+
+    def final_exp(self, f):
+        """f^((p^12-1)/r): easy part by conjugation/Frobenius and one Fp12
+        inversion, hard part by the BN addition chain with cyclotomic
+        squarings (bn254_ref.final_exponentiation)."""
+        Tw = self.T
+        f = Tw.f12_mul(Tw.f12_conj(f, 22), Tw.f12_inv(f))  # f^(p^6-1)
+        f = Tw.f12_mul(Tw.f12_frobenius2(f), f)  # ^(p^2+1)
+        fu = Tw.f12_pow_u(f, cyclo=True)
+        fu2 = Tw.f12_pow_u(fu, cyclo=True)
+        fu3 = Tw.f12_pow_u(fu2, cyclo=True)
+        fp = Tw.f12_frobenius(f)
+        fp2 = Tw.f12_frobenius(fp)
+        fp3 = Tw.f12_frobenius(fp2)
+        y0 = Tw.f12_mul(Tw.f12_mul(fp, fp2), fp3)
+        y1 = Tw.f12_conj(f, 22)
+        y2 = Tw.f12_frobenius2(fu2)
+        y3 = Tw.f12_conj(Tw.f12_frobenius(fu), 22)
+        y4 = Tw.f12_conj(Tw.f12_mul(fu, Tw.f12_frobenius(fu2)), 22)
+        y5 = Tw.f12_conj(fu2, 22)
+        y6 = Tw.f12_conj(Tw.f12_mul(fu3, Tw.f12_frobenius(fu3)), 22)
+        t0 = Tw.f12_mul(Tw.f12_mul(Tw.f12_cyclo_sqr(y6), y4), y5)
+        t1 = Tw.f12_mul(Tw.f12_mul(y3, y5), t0)
+        t0 = Tw.f12_mul(t0, y2)
+        t1 = Tw.f12_mul(Tw.f12_cyclo_sqr(t1), t0)
+        t1 = Tw.f12_cyclo_sqr(t1)
+        t0 = Tw.f12_mul(t1, y1)
+        t1 = Tw.f12_mul(t1, y0)
+        t0 = Tw.f12_cyclo_sqr(t0)
+        return Tw.f12_mul(t0, t1)
+
+    # -- entry points ----------------------------------------------------------
+
+    def pairing(self, p, q, mask=None):
+        """Batched e(P, Q) in GT; masked lanes give 1."""
+        return self.final_exp(self.miller_loop(p, q, mask))
+
+    def gt_is_one(self, f):
+        """(B,) bool: lane-wise comparison with the GT identity."""
+        batch = f[0][0][0].shape[1]
+        return self.T.f12_eq(f, self.T.f12_one(batch))
+
+    def pairing_check(self, p, q, mask, groups: int):
+        """Product-of-pairings verdicts for `groups` candidates.
+
+        Pair-chunk-major layout: lane i*groups + j holds pair i of candidate
+        j. Computes prod_i e(P_ij, Q_ij) per candidate with one shared final
+        exponentiation; returns (groups,) bools. Masked lanes contribute 1."""
+        f = self.miller_loop(p, q, mask)
+        per = f[0][0][0].shape[1] // groups
+
+        def chunk(i):
+            return _tree_map(lambda a: a[:, i * groups : (i + 1) * groups], f)
+
+        acc = chunk(0)
+        for i in range(1, per):
+            acc = self.T.f12_mul(acc, chunk(i))
+        return self.gt_is_one(self.final_exp(acc))

@@ -1,0 +1,33 @@
+"""Device choice for the PyTorch port — counterpart of handel_tpu/utils/jaxenv.py.
+
+Every entry point of the port takes a `device` argument. The default is the
+card (`cuda`); the CPU is used only when the caller names it, as the tests
+do. Asking for `cuda` where there is none raises: the port never slips onto
+the CPU behind the caller's back, because a number measured there would be
+read as a device number.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The torch.device an entry point runs on: `device`, else `cuda`.
+
+    Raises RuntimeError for a CUDA device on a machine without one, and
+    ValueError for device types the port has no path for."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available() "
+                f"is False; pass device='cpu' to run the plain PyTorch path"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device type {dev.type!r}: 'cuda' or 'cpu'")
+    return dev
