@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of handel_tpu: BLS-over-BN254 batch verification.
+"""PyTorch + CUDA port of handel_tpu: BLS-over-BN254 batch verification on
+the CIOS and the RNS field backends.
 
 The JAX package (`handel_tpu`) stays the reference. This package imports
 torch and numpy, never jax and nothing of `handel_tpu`; module names mirror
@@ -7,7 +8,10 @@ the reference so each counterpart is easy to find:
   ops/bn254_ref.py       scalar BN254 oracle (a copy of the reference's)
   ops/fp.py              Field: limb tensors, carry-lookahead add/sub, and the
                          Montgomery multiply (CUDA kernel on the card, its
-                         plain PyTorch version on the CPU)
+                         plain PyTorch version on the CPU); the backend seam
+  ops/rns.py             RnsField (backend "rns"): per-mul RNS products and
+                         the residue-resident form, whose products run the
+                         second CUDA kernel
   ops/tower.py           Fp2/Fp6/Fp12 with batch stacking
   ops/curve.py           G1/G2 complete projective formulas, sums, scans
   ops/pairing.py         batched optimal-ate pairing and pairing check
@@ -18,6 +22,7 @@ the reference so each counterpart is easy to find:
   core/                  bitset, scheme interfaces, validation counters
                          (the parts of the reference's core/ the above use)
   utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
+  utils/opcount.py       kernel-launching ops per verify launch, on the CPU
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # every kernel source of the port (csrc/<name>.cu)
-KERNELS = ("fp_mont",)
+KERNELS = ("fp_mont", "rns_mont")
 
 
 def nvcc_path() -> str:

@@ -12,6 +12,11 @@ A launch verifies up to `batch_size` candidate aggregate signatures at once:
      e(H(m), X_j) * e(-S_j, B2) == 1 for every candidate j, with one shared
      final exponentiation (ops/pairing.py `pairing_check`).
 
+`fp_backend="rns"` runs the field on the RNS backend (ops/rns.py): the
+aggregation and affine conversion through its per-mul products, the pairing
+check on residue planes (the resident form, on by default there) through
+kernel B2.
+
 Keys, signatures and wire formats are the host objects of models/bn254.py.
 The host packer builds each launch in pinned staging buffers that rotate
 over `stage_sets` sets; a CUDA event per set fences a set against reuse
@@ -131,7 +136,10 @@ def bank_from_numpy(reg_x, reg_y, prefix=None, device=None) -> RegistryBank:
     `reg_x`/`reg_y` are Fp2 pairs of (nlimbs, n) uint32 arrays (its
     `_reg_x`/`_reg_y` through np.asarray), `prefix` optionally its
     ((x0, x1), (y0, y1), inf) prefix tuple. The limbs are < 2^16, so the
-    int32 copy holds the same bits."""
+    int32 copy holds the same bits. They are taken as they are, in whatever
+    Montgomery form the JAX device packed them: a bank from a JAX device on
+    the rns backend (constant M) serves an engine whose curves are on the
+    rns backend too, and equals that engine's own packing."""
     from handel_tpu_torch.utils.torchenv import resolve_device
 
     dev = resolve_device(device)
@@ -153,7 +161,10 @@ class BN254Device:
 
     `device` is where the launches run: the card unless the caller asks for
     "cpu" (then every kernel call takes its plain PyTorch version). `bank`
-    replaces packing `registry_pubkeys` (see `bank_from_numpy`)."""
+    replaces packing `registry_pubkeys` (see `bank_from_numpy`).
+    `fp_backend` picks the field's multiply when `curves` is not given;
+    `rns_resident` toggles the resident pairing (None: on exactly for the
+    rns backend, True demands it)."""
 
     ref = bn
     Curves = BN254Curves
@@ -174,11 +185,13 @@ class BN254Device:
         device=None,
         batch_check: str = "per_candidate",
         bank: RegistryBank | None = None,
+        fp_backend: str | None = None,
+        rns_resident: bool | None = None,
     ):
         self.batch_check = validate_batch_check(batch_check)
-        self.curves = curves or self.Curves(device=device)
+        self.curves = curves or self.Curves(device=device, backend=fp_backend)
         self.device = self.curves.device
-        self.pairing = self.Pairing(self.curves)
+        self.pairing = self.Pairing(self.curves, resident=rns_resident)
         self.batch_size = batch_size
         T = self.curves.T
         if bank is None:
@@ -588,7 +601,9 @@ class BN254TorchConstructor(BN254Constructor):
 
     The engine is built from the pubkey sequence of the first call (Handel
     passes the same registry list every time) or eagerly by `prepare()`.
-    Marshal/unmarshal and single-signature verify stay on the host."""
+    Marshal/unmarshal and single-signature verify stay on the host.
+    `fp_backend` ("cios"/"rns") picks the field's multiply; an explicit
+    `curves` wins, carrying its own field. `rns_resident` as BN254Device."""
 
     Device = BN254Device
 
@@ -599,10 +614,14 @@ class BN254TorchConstructor(BN254Constructor):
         warmup: bool = True,
         batch_check: str = "per_candidate",
         curves: BN254Curves | None = None,
+        fp_backend: str | None = None,
+        rns_resident: bool | None = None,
     ):
         self.batch_size = batch_size
         self.batch_check = validate_batch_check(batch_check)
-        self.curves = curves or self.Device.Curves(device=device)
+        self.fp_backend = fp_backend
+        self.rns_resident = rns_resident
+        self.curves = curves or self.Device.Curves(device=device, backend=fp_backend)
         self.warmup = warmup
         self._device: BN254Device | None = None
         self._device_for: int | None = None
@@ -613,6 +632,7 @@ class BN254TorchConstructor(BN254Constructor):
             batch_size=self.batch_size,
             curves=self.curves,
             batch_check=self.batch_check,
+            rns_resident=self.rns_resident,
         )
         if self.warmup:
             self._device.warmup()
@@ -651,9 +671,12 @@ class BN254TorchScheme(BN254Scheme):
         device=None,
         warmup: bool = True,
         batch_check: str = "per_candidate",
+        fp_backend: str | None = None,
+        rns_resident: bool | None = None,
     ):
         self.constructor = BN254TorchConstructor(
             batch_size=batch_size, device=device, warmup=warmup,
-            batch_check=batch_check,
+            batch_check=batch_check, fp_backend=fp_backend,
+            rns_resident=rns_resident,
         )
 

@@ -271,8 +271,12 @@ class BN254Curves:
     g1_b3 = 9  # 3*b for E: y^2 = x^3 + 3
 
     def __init__(self, field: Field | None = None, tower: Tower | None = None,
-                 device=None):
-        self.F = field or (tower.F if tower is not None else Field(self.params.P, device=device))
+                 device=None, backend: str | None = None):
+        # `backend` picks the Field's multiply ("cios"/"rns"); a field or tower wins
+        self.F = field or (
+            tower.F if tower is not None
+            else Field(self.params.P, backend=backend, device=device)
+        )
         self.T = tower or Tower(self.F, params=self.params)
         self.device = self.F.device
         self.g1 = Curve(_FpAdapter(self.F, b3=self.g1_b3))

@@ -22,7 +22,10 @@ limbs, BLS12-381 24.
 * Callers stack independent multiplies into one wide call (ops/tower.py),
   so an Fp12 multiply is one `mul` at 54x the batch width.
 
-Only the CIOS backend is ported; the RNS backend is later work.
+`backend` picks the modular multiply, as in the reference: "cios" (this
+class, kernel B1) or "rns" (ops/rns.py `RnsField`, which `__new__`
+redirects to; its resident products run kernel B2). Canonical
+non-Montgomery boundary values are bit-identical across backends.
 """
 
 from __future__ import annotations
@@ -94,11 +97,26 @@ class Field:
     """Modular arithmetic over a fixed prime on int32 limb tensors.
 
     Methods take and return (nlimbs, B) int32 tensors; `device` is where
-    the host conversions put their results (default: the card)."""
+    the host conversions put their results (default: the card). `backend`
+    "rns" constructs an `RnsField` instead (ops/rns.py)."""
 
+    backend = "cios"
     limb_dtype = torch.int32
 
-    def __init__(self, p: int, device: str | torch.device | None = None):
+    def __new__(cls, p: int = 0, backend: str | None = None, device=None):
+        if cls is Field and backend == "rns":
+            from handel_tpu_torch.ops.rns import RnsField  # lazy: avoid a cycle
+
+            return super().__new__(RnsField)
+        return super().__new__(cls)
+
+    def __init__(self, p: int, backend: str | None = None,
+                 device: str | torch.device | None = None):
+        if backend not in (None, "cios", "rns"):
+            raise ValueError(
+                f"unknown Field backend {backend!r}: valid choices are 'cios' "
+                f"(Montgomery kernel B1) and 'rns' (residue pipeline, ops/rns.py)"
+            )
         self.p = p
         self.device = resolve_device(device)
         self.nlimbs = n = (p.bit_length() + LIMB_BITS - 1) // LIMB_BITS
@@ -122,8 +140,9 @@ class Field:
         ij = torch.arange(n)[:, None] + torch.arange(n)[None, :]
         self._ij = ij.reshape(-1).to(dev)
         self._consts: dict[int, torch.Tensor] = {}
-        # R^2 mod p as plain limbs: to_mont(a) = mont_mul(a, R^2)
-        self._r2 = torch.from_numpy(_int_to_limbs(self.mont_r2, n)).to(dev)[:, None]
+        # R^2 mod p as plain limbs (to_mont(a) = mul(a, R^2)), built at the
+        # first to_mont: a subclass may still change its Montgomery constant
+        self._r2: torch.Tensor | None = None
 
     # -- host-side conversions ----------------------------------------------
 
@@ -284,6 +303,9 @@ class Field:
     # -- Montgomery domain conversions ----------------------------------------
 
     def to_mont(self, a):
+        if self._r2 is None:
+            r2 = _int_to_limbs(self.mont_r2, self.nlimbs)
+            self._r2 = torch.from_numpy(r2).to(self.device)[:, None]
         return self.mul(a, self._r2.expand(a.shape))
 
     def from_mont(self, a):

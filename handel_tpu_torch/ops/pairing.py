@@ -14,12 +14,15 @@
 * A (B,) validity mask selects f = 1 for masked lanes (infinity, padding).
 * `pairing_check` multiplies each candidate's Miller values and runs one
   shared final exponentiation on the product.
-
-Positional (CIOS) only: the residue-resident mode of the reference belongs
-to the RNS backend, which is not ported yet.
+* Resident mode (the rns field backend, on by default there): the Miller
+  loop and the final exponentiation run on residue planes through
+  `Tower.as_resident()`; positional limbs appear only at the boundaries
+  (points in, GT element or verdict out), each one stacked conversion.
 """
 
 from __future__ import annotations
+
+import torch
 
 from handel_tpu_torch.ops import bn254_ref as bn
 from handel_tpu_torch.ops.curve import BN254Curves, _tree_map
@@ -32,10 +35,24 @@ _ATE_BITS = [int(c) for c in bin(bn.ATE_LOOP_COUNT)[3:]]
 class BN254Pairing:
     """Batched optimal-ate pairing over the shared Field/Tower/Curves stack."""
 
-    def __init__(self, curves: BN254Curves | None = None, device=None):
+    def __init__(self, curves: BN254Curves | None = None, device=None,
+                 resident: bool | None = None):
         self.curves = curves or BN254Curves(device=device)
         self.F = self.curves.F
         self.T = self.curves.T
+        # residue-resident mode: None = on exactly for the 'rns' backend
+        if resident is None:
+            resident = self.F.backend == "rns"
+        elif resident and self.F.backend != "rns":
+            raise ValueError(
+                f"resident pairing needs the 'rns' field backend (got "
+                f"{self.F.backend!r}): construct the curves with "
+                f"backend='rns', or pass resident=False"
+            )
+        self.resident = resident
+        # every internal tower call goes through _Tw; the entry points
+        # convert at the boundaries when it is the resident tower
+        self._Tw = self.T.as_resident() if resident else self.T
         # psi-Frobenius constants of the ate correction points
         # (bn254_ref.miller_loop_projective: gamma_2 for x, gamma_3 for y)
         self._g2c = self.curves.params._GAMMA[2]
@@ -45,10 +62,36 @@ class BN254Pairing:
 
     def _mm(self, pairs):
         """Stack independent Fp2 multiplications into one f2_mul call."""
-        T = self.T
+        T = self._Tw
         lhs = T._f2_stack([p[0] for p in pairs])
         rhs = T._f2_stack([p[1] for p in pairs])
         return T._f2_unstack(T.f2_mul(lhs, rhs), len(pairs))
+
+    def _points_in(self, p, q):
+        """Boundary in: the six point-coordinate tensors convert to residues
+        in one stacked to_resident (no-op when positional)."""
+        if not self.resident:
+            return p, q
+        (xp, yp), (xq, yq) = p, q
+        b = xp.shape[1]
+        r = self.F.to_resident(torch.cat([xp, yp, xq[0], xq[1], yq[0], yq[1]], dim=1))
+        parts = [r[:, i * b : (i + 1) * b] for i in range(6)]
+        return (parts[0], parts[1]), ((parts[2], parts[3]), (parts[4], parts[5]))
+
+    def _f12_out(self, f):
+        """Boundary out: a resident Fp12 element back to canonical limbs in
+        one stacked from_resident, 12 coordinates wide (passthrough when
+        positional)."""
+        if not self.resident:
+            return f
+        flat = self._Tw._flatten12(f)
+        b = flat[0].shape[1]
+        v = self.F.from_resident(torch.cat(flat, dim=1))
+        p = [v[:, i * b : (i + 1) * b] for i in range(12)]
+        return (
+            ((p[0], p[1]), (p[2], p[3]), (p[4], p[5])),
+            ((p[6], p[7]), (p[8], p[9]), (p[10], p[11])),
+        )
 
     @staticmethod
     def _dbl_n(T, a, k: int):
@@ -61,7 +104,7 @@ class BN254Pairing:
         """Sparse line (yp-term, xp-term, constant) -> full Fp12 element at
         w-degree slots 0, 1, 3 (D-twist untwist)."""
         c_yp, c_xp, c_const = line
-        z = self.T.f2_zero(batch)
+        z = self._Tw.f2_zero(batch)
         return ((c_yp, z, z), (c_xp, c_const, z))
 
     # -- Miller-loop steps (bn254_ref.miller_loop_projective dbl/add) --------
@@ -69,7 +112,7 @@ class BN254Pairing:
     def _dbl_step(self, Tpt, xp, yp):
         """Doubling step: new T and the tangent line at T evaluated at
         P = (xp, yp), scaled by 2YZ^3."""
-        Tw = self.T
+        Tw = self._Tw
         X, Y, Z = Tpt
         XX, YY, YZ = self._mm([(X, X), (Y, Y), (Y, Z)])
         n = Tw.f2_add(Tw.f2_add(XX, XX), XX)  # 3X^2
@@ -101,7 +144,7 @@ class BN254Pairing:
     def _add_step(self, Tpt, Q, xp, yp):
         """Mixed-addition step T + Q (Q affine) and the line through them
         evaluated at P, scaled by d = x2 Z - X."""
-        Tw = self.T
+        Tw = self._Tw
         X, Y, Z = Tpt
         x2, y2 = Q
         y2Z, x2Z = self._mm([(y2, Z), (x2, Z)])
@@ -127,8 +170,15 @@ class BN254Pairing:
     def miller_loop(self, p, q, mask=None):
         """Batched Miller loop. p: (xp, yp) base-field limb tensors (G1
         affine); q: (x, y) Fp2 pairs (G2' affine); mask: optional (B,) bool,
-        lanes with False return f = 1. Returns an Fp12 batch."""
-        Tw = self.T
+        lanes with False return f = 1. Returns an Fp12 batch of canonical
+        limbs in either mode."""
+        return self._f12_out(self._miller_loop_res(p, q, mask))
+
+    def _miller_loop_res(self, p, q, mask=None):
+        """`miller_loop` in the working representation (residue planes when
+        resident), the form `pairing` and `pairing_check` chain on."""
+        Tw = self._Tw
+        p, q = self._points_in(p, q)
         xp, yp = p
         xq, yq = q
         batch = xp.shape[1]
@@ -148,7 +198,7 @@ class BN254Pairing:
 
     def _miller_tail(self, Tpt, f, q, xp, yp, batch):
         """BN ate corrections: add psi(Q) and -psi^2(Q) on the twist."""
-        Tw = self.T
+        Tw = self._Tw
         xq, yq = q
         g2 = Tw.f2_constant(self._g2c, batch)
         g3 = Tw.f2_constant(self._g3c, batch)
@@ -166,7 +216,7 @@ class BN254Pairing:
         """f^((p^12-1)/r): easy part by conjugation/Frobenius and one Fp12
         inversion, hard part by the BN addition chain with cyclotomic
         squarings (bn254_ref.final_exponentiation)."""
-        Tw = self.T
+        Tw = self._Tw
         f = Tw.f12_mul(Tw.f12_conj(f, 22), Tw.f12_inv(f))  # f^(p^6-1)
         f = Tw.f12_mul(Tw.f12_frobenius2(f), f)  # ^(p^2+1)
         fu = Tw.f12_pow_u(f, cyclo=True)
@@ -195,11 +245,16 @@ class BN254Pairing:
     # -- entry points ----------------------------------------------------------
 
     def pairing(self, p, q, mask=None):
-        """Batched e(P, Q) in GT; masked lanes give 1."""
-        return self.final_exp(self.miller_loop(p, q, mask))
+        """Batched e(P, Q) in GT; masked lanes give 1. A resident run stays
+        in residues from the points in to the GT element out."""
+        return self._f12_out(self.final_exp(self._miller_loop_res(p, q, mask)))
 
     def gt_is_one(self, f):
-        """(B,) bool: lane-wise comparison with the GT identity."""
+        """(B,) bool: lane-wise comparison with the GT identity. Comparison
+        is a positional boundary: a resident element (k_all rows) converts
+        first."""
+        if self.resident and f[0][0][0].shape[0] == self.F.k_all:
+            f = self._f12_out(f)
         batch = f[0][0][0].shape[1]
         return self.T.f12_eq(f, self.T.f12_one(batch))
 
@@ -208,8 +263,10 @@ class BN254Pairing:
 
         Pair-chunk-major layout: lane i*groups + j holds pair i of candidate
         j. Computes prod_i e(P_ij, Q_ij) per candidate with one shared final
-        exponentiation; returns (groups,) bools. Masked lanes contribute 1."""
-        f = self.miller_loop(p, q, mask)
+        exponentiation; returns (groups,) bools. Masked lanes contribute 1.
+        A resident run keeps residues through the per-candidate product and
+        the final exponentiation; the verdict is its one conversion out."""
+        f = self._miller_loop_res(p, q, mask)
         per = f[0][0][0].shape[1] // groups
 
         def chunk(i):
@@ -217,5 +274,5 @@ class BN254Pairing:
 
         acc = chunk(0)
         for i in range(1, per):
-            acc = self.T.f12_mul(acc, chunk(i))
+            acc = self._Tw.f12_mul(acc, chunk(i))
         return self.gt_is_one(self.final_exp(acc))

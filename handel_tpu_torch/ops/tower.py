@@ -10,9 +10,11 @@ and the independent adds/subs of a formula go through one wide Field call
 each, the reference's batch stacking, kept so the kernel sees wide launches
 and the launch count stays low. Elements are tuples of (nlimbs, B) int32
 tensors: Fp2 = (c0, c1), Fp6 = (Fp2, Fp2, Fp2), Fp12 = (Fp6, Fp6), all
-Montgomery form and canonical. The `blog` arguments are the reference's RNS
-resident-form bound literals; the positional field ignores them, and they
-are kept so the formulas stay the reference's.
+Montgomery form and canonical, except under the resident adapter
+(`Tower.as_resident()`, ops/rns.py `ResidentRns`), where each coordinate is
+a (k_all, B) int32 residue plane bounded by 2^lb p for a statically tracked
+lb. The `blog` argument of each subtraction site is that site's subtrahend
+bound; the positional fields ignore it.
 """
 
 from __future__ import annotations
@@ -43,9 +45,11 @@ class Tower:
         self.xi = tuple(params.XI)
         if self.xi not in ((9, 1), (1, 1)):
             raise ValueError(f"unsupported Fp6 non-residue xi={self.xi}")
-        # Frobenius constants gamma_j = xi^(j(p-1)/6) as Montgomery limb pairs
+        # Frobenius constants gamma_j = xi^(j(p-1)/6) as Montgomery limb
+        # pairs, one pack each (one counted conversion on the resident form)
         self._gamma = [None] + [
-            (self.F.pack([g[0]]), self.F.pack([g[1]])) for g in params._GAMMA[1:]
+            tuple(self.F.pack([g[0], g[1]])[:, i : i + 1] for i in range(2))
+            for g in params._GAMMA[1:]
         ]
 
     _cat = staticmethod(_cat)
@@ -186,8 +190,17 @@ class Tower:
         return (self.F.constant(1, batch), self.f2_zero(batch)[1])
 
     def f2_constant(self, c, batch: int):
-        """Embed a scalar-oracle Fp2 value (int pair) as broadcast limbs."""
-        return (self.F.constant(c[0], batch), self.F.constant(c[1], batch))
+        """Embed a scalar-oracle Fp2 value (int pair) as broadcast limbs. On
+        the resident form each coordinate crosses through `to_resident`, as
+        in the reference (one counted conversion each), from the cached
+        positional limbs."""
+        F = self.F
+        if getattr(F, "is_resident", False):
+            return tuple(
+                F.base.to_resident(F.base.constant(x, 1)).expand(F.nlimbs, batch)
+                for x in c
+            )
+        return (F.constant(c[0], batch), F.constant(c[1], batch))
 
     # -- Fp2 stacking helpers --------------------------------------------------
 
@@ -279,7 +292,12 @@ class Tower:
     def f12_cyclo_sqr(self, a):
         """Granger–Scott squaring, valid only in the cyclotomic subgroup
         (after the easy part of the final exponentiation): 9 Fp2 squarings
-        fused into ONE width-9B f2_sqr call."""
+        fused into ONE width-9B f2_sqr call. On the resident form the input
+        is refreshed first (one stacked multiply by the Montgomery one): the
+        formula subtracts input coordinates from derived terms, so it needs a
+        small input bound; the output is <= 2^18 p."""
+        if getattr(self.F, "is_resident", False):
+            a = self._f12_refresh(a)
         x0, x1, x2 = a[0]
         x3, x4, x5 = a[1]
         s40, s23, s51 = self.f2_add_many([(x4, x0), (x2, x3), (x5, x1)])
@@ -331,9 +349,34 @@ class Tower:
     def _flatten12(self, a):
         return [a[i][j][k] for i in range(2) for j in range(3) for k in range(2)]
 
+    def _f12_refresh(self, a):
+        """Resident only: reset all 12 coordinate bounds to <= 2^6 p in one
+        stacked refresh (12x the batch wide)."""
+        parts = _split(self.F.refresh(_cat(self._flatten12(a))), 12)
+        return (
+            ((parts[0], parts[1]), (parts[2], parts[3]), (parts[4], parts[5])),
+            ((parts[6], parts[7]), (parts[8], parts[9]), (parts[10], parts[11])),
+        )
+
+    def as_resident(self) -> "Tower":
+        """A Tower over the resident form of this tower's RNS field: the same
+        formulas on residue planes (cached)."""
+        if not hasattr(self.F, "resident"):
+            raise TypeError(
+                f"as_resident() needs the 'rns' field backend; this tower's "
+                f"field is {self.F.backend!r}"
+            )
+        cached = getattr(self, "_resident_tower", None)
+        if cached is None:
+            cached = self._resident_tower = Tower(self.F.resident(), params=self.params)
+        return cached
+
     def f12_frobenius(self, a):
         """x -> x^p: conjugate each Fp2 coordinate (one stacked neg), multiply
-        the w-degree-j slots by gamma_j (one f2_mul, 5 wide)."""
+        the w-degree-j slots by gamma_j (one f2_mul, 5 wide). On the resident
+        form the w^0 slot is multiplied by one as well (6 wide, the same one
+        call), so every output slot is a product with its bound reset to
+        <= 2^8 p and chained Frobenius maps cannot pile bounds up."""
         (c00, c01, c02), (c10, c11, c12) = a
         batch = c00[0].shape[1]
         coords = [c00, c01, c02, c10, c11, c12]
@@ -346,6 +389,11 @@ class Tower:
             g0, g1 = self._gamma[j]
             return (g0.expand(n, batch), g1.expand(n, batch))
 
+        if getattr(self.F, "is_resident", False):
+            lhs = self._f2_stack(conj)
+            rhs = self._f2_stack([self.f2_one(batch), g(2), g(4), g(1), g(3), g(5)])
+            m = self._f2_unstack(self.f2_mul(lhs, rhs), 6)
+            return ((m[0], m[1], m[2]), (m[3], m[4], m[5]))
         lhs = self._f2_stack(conj[1:])
         rhs = self._f2_stack([g(2), g(4), g(1), g(3), g(5)])
         m01, m02, m10, m11, m12 = self._f2_unstack(self.f2_mul(lhs, rhs), 5)

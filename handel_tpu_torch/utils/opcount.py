@@ -1,0 +1,136 @@
+"""Count the kernel-launching torch ops of one verify launch, on the CPU.
+
+    python -m handel_tpu_torch.utils.opcount [--registry 64] [--lanes 4]
+
+Runs one range launch per field backend ("cios", then "rns") through
+`BN254TorchScheme(device="cpu")` under a `TorchDispatchMode` that counts
+every dispatched op except views (which launch nothing on a card), with
+each kernel wrapper's plain version counted as one op, as the card runs it
+as one kernel. The count does not depend on the batch width, so it predicts
+a card's device-activity count per launch at any width; it is a count, not
+a device measurement. `scopes` attributes the ops issued inside the per-mul
+`RnsField.mul` and inside `Field.inv` (the affine conversion's Fermat
+inverse) on top of the total. Prints one JSON line per backend.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import random
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
+
+# ops that only make views: no kernel on the card
+VIEW_OPS = frozenset({
+    "aten.slice", "aten.unsqueeze", "aten.select", "aten.expand", "aten.view",
+    "aten._unsafe_view", "aten.reshape", "aten.t", "aten.transpose", "aten.alias",
+    "aten.as_strided", "aten.detach", "aten.split", "aten.squeeze", "aten.permute",
+    "aten.unbind", "aten.split_with_sizes", "aten.lift_fresh", "aten._reshape_alias",
+})
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts dispatched ops by name, and the kernel-launching ones issued
+    inside each open scope by scope name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: collections.Counter = collections.Counter()
+        self.scopes: collections.Counter = collections.Counter()
+        self.open: list[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        self.counts[name] += 1
+        if name not in VIEW_OPS:
+            for scope in set(self.open):
+                self.scopes[scope] += 1
+        return func(*args, **(kwargs or {}))
+
+    def launches(self) -> int:
+        return sum(v for k, v in self.counts.items() if k not in VIEW_OPS)
+
+
+def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> dict:
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+    from handel_tpu_torch.ops import bn254_ref as bn
+    from handel_tpu_torch.ops.fp import Field
+    from handel_tpu_torch.ops.rns import RnsField
+
+    rng = random.Random(seed)
+    sks = [rng.randrange(1, 1 << 30) for _ in range(registry)]
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+    msg = b"op count"
+    h = hash_to_g1(msg)
+    requests = []
+    for _ in range(lanes):
+        lo = rng.randrange(0, registry // 2)
+        idx = range(lo, lo + registry // 4)
+        bs = BitSet(registry)
+        for i in idx:
+            bs.set(i, True)
+        requests.append((bs, BN254Signature(bn.g1_mul(h, sum(sks[i] for i in idx) % bn.R))))
+    cons = BN254TorchScheme(batch_size=lanes, device="cpu", fp_backend=backend).constructor
+    cons.prepare(pks)
+    counter = OpCounter()
+    plain = {(Field, "_mul_plain"), (RnsField, "_mul_resident_core")}
+    scoped = {(RnsField, "mul"): "rns_per_mul", (Field, "inv"): "field_inv"}
+    saved = {key: getattr(*key) for key in [*plain, *scoped]}
+
+    def as_one_kernel(fn):
+        def wrapped(self, a, b):
+            with _disable_current_modes():
+                out = fn(self, a, b)
+            counter.counts["kernel"] += 1
+            for scope in set(counter.open):
+                counter.scopes[scope] += 1
+            return out
+        return wrapped
+
+    def in_scope(fn, scope):
+        def wrapped(*args):
+            counter.open.append(scope)
+            try:
+                return fn(*args)
+            finally:
+                counter.open.pop()
+        return wrapped
+
+    try:
+        for key in plain:
+            setattr(*key, as_one_kernel(saved[key]))
+        for key, scope in scoped.items():
+            setattr(*key, in_scope(saved[key], scope))
+        with counter:
+            verdicts = cons.batch_verify(msg, pks, requests)
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+    if not all(verdicts):
+        raise AssertionError(f"{backend}: a valid candidate was rejected")
+    top = sorted(
+        ((k, v) for k, v in counter.counts.items() if k not in VIEW_OPS), key=lambda kv: -kv[1]
+    )[:10]
+    return {"backend": backend, "launch_class": "range", "lanes": lanes,
+            "registry": registry, "kernel_launching_ops": counter.launches(),
+            "kernel_calls": counter.counts["kernel"], "scopes": dict(counter.scopes),
+            "top": dict(top)}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--registry", type=int, default=64)
+    ap.add_argument("--lanes", type=int, default=4)
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    for backend in ("cios", "rns"):
+        print(json.dumps(count_range_launch(backend, args.registry, args.lanes)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

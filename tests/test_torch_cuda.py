@@ -1,4 +1,4 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernel has no CPU mode.
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels have no CPU mode.
 
 Marked `cuda`; each skips, saying why, where torch sees no card. On a
 machine with a card and nvcc (JAX need not be installed there):
@@ -27,7 +27,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -72,6 +72,69 @@ def test_wrapper_contract(card):
     assert F.unpack(F.mul(a, F.constant(2, 3))) == [6, 8, 10]
 
 
+def _residues(F, cols, seed):
+    """(k_all, cols) int32 residues, each row below its modulus, with 0
+    and m_i - 1 in the first two columns (as far as they reach)."""
+    gen = torch.Generator().manual_seed(seed)
+    m = torch.from_numpy(F._m_all).long()[:, None]
+    r = torch.randint(0, 1 << 30, (F.k_all, cols), generator=gen) % m
+    r[:, :1] = 0
+    r[:, 1:2] = m - 1
+    return r.to(torch.int32)
+
+
+@pytest.mark.parametrize("p", [bn.P, BLS12_381_P], ids=["bn254", "bls12_381"])
+@pytest.mark.parametrize("cols", [1, 31, 127, 129, 4099])
+def test_rns_kernel_matches_plain_at_ragged_widths(card, p, cols):
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+
+    F = Field(p, backend="rns", device=card)
+    a, b = _residues(F, cols, cols).to(card), _residues(F, cols, cols + 1).to(card)
+    before = rns_mul_resident.launches
+    got = F.mul_resident(a, b)
+    assert rns_mul_resident.launches == before + 1
+    assert torch.equal(got, F._mul_resident_core(a, b))
+    # row slices of a wider operand take the kernel's row stride
+    wide = torch.cat([a, a], dim=1)
+    assert torch.equal(F.mul_resident(wide[:, cols:], b), got)
+    # the integer identity through the resident conversions
+    rng = random.Random(cols)
+    xs = [rng.randrange(p) for _ in range(cols)]
+    ys = [rng.randrange(p) for _ in range(cols)]
+    r = F.mul_resident(F.to_resident(F.pack(xs, mont=False)), F.to_resident(F.pack(ys, mont=False)))
+    minv = pow(F.M, -1, p)
+    assert F.unpack(F.from_resident(r), mont=False) == [x * y * minv % p for x, y in zip(xs, ys)]
+
+
+def test_rns_wrapper_contract(card):
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+
+    F = Field(bn.P, backend="rns", device=card)
+    a = F.to_resident(F.pack([3, 4, 5]))
+    empty = rns_mul_resident(F, a[:, :0], a[:, :0])
+    assert empty.shape == (F.k_all, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rns_mul_resident(F, a.cpu(), a)
+    with pytest.raises(ValueError, match="dtype"):
+        rns_mul_resident(F, a.long(), a.long())
+    with pytest.raises(ValueError, match="shape"):
+        rns_mul_resident(F, a[:20], a[:20])
+    with pytest.raises(ValueError, match="column stride"):
+        rns_mul_resident(F, a.t().contiguous().t(), a)
+    with pytest.raises(ValueError, match="shapes differ"):
+        rns_mul_resident(F, a, a[:, :2])
+    with pytest.raises(ValueError, match="field on"):
+        rns_mul_resident(Field(bn.P, backend="rns", device="cpu"), a, a)
+    # mul_resident makes a broadcast operand dense before the launch, and
+    # the per-mul path never reaches kernel B1
+    A = F.resident()
+    before = mont_mul.launches
+    assert A.unpack(A.mul(a, A.constant(2, 3))) == [6, 8, 10]
+    assert F.unpack(F.mul(F.pack([3, 4]), F.pack([5, 6]))) == [15, 24]
+    assert mont_mul.launches == before
+
+
 def test_verify_on_card(card):
     """A range and a dense launch on the card with a small registry."""
     from handel_tpu_torch.core.bitset import BitSet
@@ -98,3 +161,33 @@ def test_verify_on_card(card):
     dense = [cand([0, 79]), cand(range(0, 80, 3)), cand([1, 78], forge=True)]
     assert dev._pack_requests(dense).kind == "dense"
     assert dev.batch_verify(b"m", dense) == [True, True, False]
+
+
+def test_rns_verify_on_card(card):
+    """The rns backend's range and dense launches on the card: B2 launched,
+    B1 not."""
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+
+    rng = random.Random(8)
+    n = 80
+    sks = [rng.randrange(1, 1 << 30) for _ in range(n)]
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+    dev = BN254Device(pks, batch_size=4, device=card, fp_backend="rns")
+    assert dev.pairing.resident
+    h = hash_to_g1(b"m")
+
+    def cand(idx, forge=False):
+        bs = BitSet(n)
+        for i in idx:
+            bs.set(i, True)
+        k = (sum(sks[i] for i in idx) + forge) % bn.R
+        return bs, BN254Signature(bn.g1_mul(h, k))
+
+    b1, b2 = mont_mul.launches, rns_mul_resident.launches
+    assert dev.batch_verify(b"m", [cand(range(3, 40)), cand(range(5, 9), forge=True)]) == [True, False]
+    assert dev.batch_verify(b"m", [cand([0, 79]), cand([1, 78], forge=True)]) == [True, False]
+    assert rns_mul_resident.launches > b2 and mont_mul.launches == b1
