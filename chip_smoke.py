@@ -20,6 +20,21 @@ Phases, one line each, any failure exits non-zero with no result line:
               (k_all 65): 2^20 + 16 random residue columns with 0 and m_i - 1
               first, and an Fp12 multiply at 128 lanes; the integer identity
               x y M^-1 mod p through the resident conversions on a prefix
+     lab_kernel  kernels B3a and B3b, the kernel lab's two formulations of
+              B1's product (csrc/lab_mont.cu), each against its plain version
+              and against B1, exact equality, at 16 limbs (2^20 + 16 columns
+              with edge pairs, the lab's batch 2^18, an Fp12 multiply at 128
+              lanes) and 24 limbs (2^20 + 16); and against its plain version
+              on the lab's own race inputs, 2^18 columns of raw 16-bit digits
+              Every kernel figure of phase 3 is a device time per call: chains
+              of calls captured in one CUDA graph and replayed, by
+              chained_marginal's slope (handel_tpu_torch/ops/fp.py), each
+              call reading operands that no recent call left in the L2 cache
+              (ColdOperands), so the bytes bound holds at every width; the
+              back-to-back eager figure, which measures the host's issue
+              rate at narrow widths, stays beside it as `eager_ms`. One graph
+              per kernel, of dependent calls, is replayed over a sentinel
+              and held against an eager chain of the same depth, exactly.
   4. verify   BN254TorchScheme on a 4096-key registry with 128 lanes: a range
               launch of 64 candidates and a dense launch of 126, each with
               forged lanes (wrong signature, wrong message), an empty bitset
@@ -34,17 +49,27 @@ Phases, one line each, any failure exits non-zero with no result line:
               resident pairing against the scalar oracle
   5. profile  one range launch of each path under torch.profiler: device
               activities, busy time against wall time, the costliest kernels
+  6. lab      the kernel lab (python -m handel_tpu_torch.scripts.fp_kernel_lab)
+              at batch 2^18 and 2^20, the outer-product lab
+              (...scripts.mxu_limb_lab) at 2^15 with the card's int8 ceiling,
+              and the production field's marginal rate for cios and rns
+              (python -m handel_tpu_torch.ops.fp): muls/s per candidate, each
+              candidate validated first; any failure fails the run. B3a and
+              B3b must run here, B2 must not; the kernels a lab run executed
+              are its wrapper counts less the calls captured into graphs plus
+              the calls the graphs replayed.
 
-Each path of phase 4 is one main-path run: every kernel's launch count is
-set to 0 just before it and read just after. Then one JSON line of kernel
-figures, the nvidia-smi line again, and last {"ok": true, "device": {...}}.
-Exits non-zero without a CUDA device.
+Each path of phases 4 and 6 is one main-path run: every kernel's launch
+count is set to 0 just before it and read just after. Then one JSON line of
+kernel figures, the nvidia-smi line again, and last {"ok": true, "device":
+{...}}. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +93,7 @@ BLS12_381_P = int(
 # 1.98 GHz = 16.7 T int32 operations/s
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+L2_BYTES = 50 << 20  # H100 L2 cache, 50 MB
 
 
 def line(phase: str, **kw) -> None:
@@ -95,6 +121,96 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class ColdOperands:
+    """fn over a ring of copies of (a, b) that holds more than twice the L2
+    cache, for chained_marginal: each call ignores the chain's operands and
+    takes the ring's next pair, so what it reads was last touched a ring's
+    worth of bytes ago. The first call of a chain (chain() hands it the
+    chain's start, `a`) first reads a buffer of twice the L2 size, which
+    evicts what an earlier replay of the same graph left there; that fixed
+    cost per chain cancels in chained_marginal's slope. So every call reads
+    its operands from device memory, and the bytes bound (inputs over HBM
+    bandwidth) is a bound at every width."""
+
+    def __init__(self, fn, a, b):
+        import torch
+
+        per_call = (a.numel() + b.numel()) * a.element_size()
+        copies = -(-2 * L2_BYTES // per_call)
+        self.ring = [(a, b)] + [(a.clone(), b.clone()) for _ in range(copies - 1)]
+        self.evict = torch.ones(2 * L2_BYTES // 4, dtype=torch.int32, device=a.device)
+        self.a, self.fn, self.calls = a, fn, 0
+
+    def __call__(self, out, _b):
+        if out is self.a:
+            self.evict.max()
+        x, y = self.ring[self.calls % len(self.ring)]
+        self.calls += 1
+        return self.fn(x, y)
+
+
+def graph_ms(fn, a, b) -> float:
+    """Device time of one call of fn on (a, b), in ms, operands read from
+    device memory: the slope of 8- and 72-deep chains of calls, each captured
+    in one CUDA graph and replayed (chained_marginal), the calls taking their
+    operands from a ColdOperands ring. Raises when the slope is not
+    measurable."""
+    from handel_tpu_torch.ops.fp import chained_marginal
+
+    rate, _floor = chained_marginal(ColdOperands(fn, a, b), a, b, k1=8, k2=72, trials=5)
+    if rate is None:
+        raise AssertionError("graph chain slope not measurable")
+    return a.shape[1] / rate * 1e3
+
+
+def replay_check(fn, a, b, counter, depth: int = 8) -> None:
+    """A captured chain of `depth` calls, replayed over a sentinel, must equal
+    the eager chain exactly; the wrapper counts its launches at capture
+    (3 warm calls and `depth` captured) and not at replay."""
+    import torch
+
+    from handel_tpu_torch.ops.fp import ChainGraph, chain
+
+    before = counter.launches
+    g = ChainGraph(fn, a, b, depth)
+    if counter.launches - before != 3 + depth:
+        raise AssertionError(f"capture counted {counter.launches - before} launches")
+    g.out.fill_(-1)
+    before = counter.launches
+    got = g.replay().clone()
+    if counter.launches != before:
+        raise AssertionError("a graph replay moved the launch counter")
+    if not torch.equal(got, chain(fn, a, b, depth)):
+        raise AssertionError("graph replay != eager chain")
+    del g
+    torch.cuda.empty_cache()
+
+
+def ptxas_summary(log: str) -> dict[str, list[int]]:
+    """{kernel<template args>: [registers, spill store bytes, spill load
+    bytes]} from nvcc -Xptxas -v output."""
+    out, cur, spill = {}, None, [0, 0]
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", m.group(1))
+            if k:
+                args = re.findall(r"Li(\d+)E", k.group(2))
+                cur = f"{k.group(1)}<{','.join(args)}>"
+            else:
+                cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = [int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            out[cur] = [int(m.group(1)), *spill]
+            cur, spill = None, [0, 0]
+    return out
 
 
 def mont_mul_bound_ms(nlimbs: int, cols: int) -> tuple[float, str]:
@@ -166,12 +282,15 @@ def rns_kernel_phase(F, widths: dict[str, int], rng) -> dict:
         minv = pow(F.M, -1, F.p)
         if F.unpack(F.from_resident(r), mont=False) != [x * y * minv % F.p for x, y in zip(xs, ys)]:
             raise AssertionError(f"B2 != integer identity at k_all={F.k_all} width {label}")
-        ms = cuda_ms(lambda: F.mul_resident(a, b), 20)
+        if label == next(iter(widths)):
+            replay_check(F.mul_resident, a, b, rns_mul_resident)
+        ms = graph_ms(F.mul_resident, a, b)
+        eager_ms = cuda_ms(lambda: F.mul_resident(a, b), 20)
         plain_ms = cuda_ms(lambda: F._mul_resident_core(a, b), 3)
         bound, bound_by = rns_bound_ms(F, cols)
         out[label] = dict(
-            k_all=F.k_all, cols=cols, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=bound_by,
+            k_all=F.k_all, cols=cols, max_abs_err=err, ms=ms, eager_ms=eager_ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
         )
         line("rns_kernel", **out[label], width=label)
         del a, b, got, want
@@ -189,6 +308,22 @@ def random_columns(F, cols: int, rng: np.random.Generator):
     return torch.from_numpy(a.astype(np.int32))
 
 
+def operand_pair(F, cols: int, rng: np.random.Generator, with_edges: bool):
+    """Two (nlimbs, cols) CPU tensors of canonical values; with_edges puts
+    every pair of 0, 1, p-1, R mod p in the first 16 columns."""
+    import torch
+
+    a = random_columns(F, cols, rng)
+    b = random_columns(F, cols, rng)
+    if with_edges:
+        edges = [0, 1, F.p - 1, F.mont_r]
+        ea = F.pack_batch_np([x for x in edges for _ in edges], mont=False)
+        eb = F.pack_batch_np([y for _ in edges for y in edges], mont=False)
+        a[:, : ea.shape[1]] = torch.from_numpy(ea)
+        b[:, : eb.shape[1]] = torch.from_numpy(eb)
+    return a, b
+
+
 def kernel_phase(F, widths: dict[str, int], rng, with_edges: bool) -> dict:
     """Kernel against the plain version on the card at each width; returns
     per-width figures. Raises on any difference."""
@@ -199,14 +334,7 @@ def kernel_phase(F, widths: dict[str, int], rng, with_edges: bool) -> dict:
     dev = F.device
     out = {}
     for label, cols in widths.items():
-        a = random_columns(F, cols, rng)
-        b = random_columns(F, cols, rng)
-        if with_edges:  # every pair of 0, 1, p-1, R mod p in the first columns
-            edges = [0, 1, F.p - 1, F.mont_r]
-            ea = F.pack_batch_np([x for x in edges for _ in edges], mont=False)
-            eb = F.pack_batch_np([y for _ in edges for y in edges], mont=False)
-            a[:, : ea.shape[1]] = torch.from_numpy(ea)
-            b[:, : eb.shape[1]] = torch.from_numpy(eb)
+        a, b = operand_pair(F, cols, rng, with_edges)
         a, b = a.to(dev), b.to(dev)
         before = mont_mul.launches
         got = F.mul(a, b)
@@ -223,17 +351,138 @@ def kernel_phase(F, widths: dict[str, int], rng, with_edges: bool) -> dict:
         xs, ys = F.unpack(a[:, :k], mont=False), F.unpack(b[:, :k], mont=False)
         if F.unpack(got[:, :k], mont=False) != [x * y * rinv % F.p for x, y in zip(xs, ys)]:
             raise AssertionError(f"kernel != integer oracle at n={F.nlimbs} width {label}")
-        ms = cuda_ms(lambda: F.mul(a, b), 20 if cols <= 1 << 20 else 5)
+        launches = mont_mul.launches - before
+        if label == next(iter(widths)):
+            replay_check(F.mul, a, b, mont_mul)
+        ms = graph_ms(F.mul, a, b)
+        eager_ms = cuda_ms(lambda: F.mul(a, b), 20 if cols <= 1 << 20 else 5)
         plain_ms = cuda_ms(lambda: F._mul_plain(a, b), 3)
         bound, bound_by = mont_mul_bound_ms(F.nlimbs, cols)
         out[label] = dict(
-            nlimbs=F.nlimbs, cols=cols, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=bound_by, launches=mont_mul.launches - before,
+            nlimbs=F.nlimbs, cols=cols, max_abs_err=err, ms=ms, eager_ms=eager_ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, launches=launches,
         )
         line("kernel", **out[label], width=label)
         del a, b, got, want
         torch.cuda.empty_cache()
     return out
+
+
+def lab_kernel_phase(F, widths: dict[str, int], rng) -> dict:
+    """Kernels B3a and B3b against their plain bodies and against B1 on the
+    card at each width (canonical operands led by the edge pairs), and
+    against their plain bodies on the lab's own race inputs (2^18 columns of
+    raw 16-bit digits, values up to R - 1), exact; returns {kernel:
+    {width/nlimbs: figures}}. Raises on any difference."""
+    import torch
+
+    from handel_tpu_torch.kernels.lab_mont import lab_cios_fullwidth, lab_separated
+    from handel_tpu_torch.scripts.fp_kernel_lab import LabField, raw_operands
+
+    lab = LabField(F)
+    dev = F.device
+    forms = (("lab_cios_fullwidth", lab_cios_fullwidth, "cios_fullwidth"),
+             ("lab_separated", lab_separated, "separated"))
+    out = {"lab_cios_fullwidth": {}, "lab_separated": {}}
+    # raw digits reach the code that drops what passes the top
+    ra, rb = raw_operands(F, 1 << 18)
+    for name, counter, form in forms:
+        before = counter.launches
+        got = lab.kernel(form)(ra, rb)
+        if counter.launches != before + 1:
+            raise AssertionError(f"{name} on CUDA tensors did not launch its kernel")
+        want = lab.body(form)(ra, rb)
+        err = int((got.long() - want.long()).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} != plain on raw digits at n={F.nlimbs}: max err {err}")
+        out[name][f"raw_digits/{F.nlimbs}"] = fig = dict(
+            nlimbs=F.nlimbs, cols=ra.shape[1], max_abs_err=err)
+        line("lab_kernel", kernel=name, width="raw_digits", **fig)
+    del ra, rb, got, want
+    for label, cols in widths.items():
+        a, b = operand_pair(F, cols, rng, True)
+        a, b = a.to(dev), b.to(dev)
+        b1 = F.mul(a, b)
+        for name, counter, form in forms:
+            fn, body = lab.kernel(form), lab.body(form)
+            before = counter.launches
+            got = fn(a, b)
+            if counter.launches != before + 1:
+                raise AssertionError(f"{name} on CUDA tensors did not launch its kernel")
+            want = body(a, b)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} != plain at n={F.nlimbs} width {label}: max err {err}")
+            if not torch.equal(got, b1):
+                raise AssertionError(f"{name} != B1 at n={F.nlimbs} width {label}")
+            if label == next(iter(widths)):
+                replay_check(fn, a, b, counter)
+            ms = graph_ms(fn, a, b)
+            eager_ms = cuda_ms(lambda: fn(a, b), 20)
+            plain_ms = cuda_ms(lambda: body(a, b), 3)
+            bound, bound_by = mont_mul_bound_ms(F.nlimbs, cols)
+            out[name][f"{label}/{F.nlimbs}"] = fig = dict(
+                nlimbs=F.nlimbs, cols=cols, max_abs_err=err, matches_b1=True, ms=ms,
+                eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            )
+            line("lab_kernel", kernel=name, width=label, **fig)
+        del a, b, b1
+        torch.cuda.empty_cache()
+    return out
+
+
+def lab_phase(dev, counters) -> dict:
+    """The lab entry points as one main-path run: every kernel count set to
+    0 just before, read just after. fp_kernel_lab at batch 2^18 and 2^20,
+    mxu_limb_lab at its batch 2^15, and the production field's marginal
+    rate for cios and rns at 2^20. A failed validation or agreement gate
+    exits there (SystemExit) and fails the run. Returns the figures."""
+    from handel_tpu_torch.ops.fp import _throughput_bench
+    from handel_tpu_torch.scripts import fp_kernel_lab, mxu_limb_lab
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    labs = {f"fp_kernel_lab/{batch}": fp_kernel_lab.main([str(batch)])
+            for batch in (1 << 18, 1 << 20)}
+    labs["mxu_limb_lab"] = mxu_limb_lab.main([])
+    rates = {backend: _throughput_bench(1 << 20, backend=backend, device=dev)[0]
+             for backend in ("cios", "rns")}
+    launches = {k: c.launches for k, c in counters.items()}
+    seconds = time.perf_counter() - t0
+    for key, res in labs.items():
+        if res["lab"] == "fp_kernel_lab":
+            line("lab", lab=key, batch=res["batch"], muls_per_s=res["muls_per_s"],
+                 replayed_calls=res["replayed_calls"],
+                 max_memory_allocated=res["max_memory_allocated"])
+            if any(v is None for v in res["muls_per_s"].values()):
+                raise AssertionError(f"{key}: a candidate's slope was not measurable")
+        else:
+            line("lab", lab=key, **{k: v for k, v in res.items() if k not in ("lab", "device")})
+            if any(res[k] is None for k in ("prod_muls_per_s", "outer8_muls_per_s", "rns_muls_per_s")):
+                raise AssertionError(f"{key}: a candidate's slope was not measurable")
+    line("lab", lab="ops.fp", batch=1 << 20, mont_muls_per_s=rates)
+    if not all(rates.values()):
+        raise AssertionError(f"ops.fp: a marginal rate was not measurable: {rates}")
+    if launches["rns_mont_mul_resident"] != 0:
+        raise AssertionError("the lab launched B2: the per-mul rns product never does")
+    # the kernels B3a and B3b executed: a wrapper's count moves at eager calls
+    # and at graph capture, never at replay, so take the captured calls out
+    # and the replayed ones in
+    captured, replayed, executed = {}, {}, {}
+    for name, form in (("lab_cios_fullwidth", "cios_fullwidth"), ("lab_separated", "separated")):
+        cands = [(res, cand) for key, res in labs.items() if key.startswith("fp_kernel_lab")
+                 for cand in res["replayed_calls"] if cand.startswith(f"cuda:{form}:")]
+        captured[name] = sum(res["captured_calls"][cand] for res, cand in cands)
+        replayed[name] = sum(res["replayed_calls"][cand] for res, cand in cands)
+        executed[name] = launches[name] - captured[name] + replayed[name]
+        if executed[name] == 0:
+            raise AssertionError(f"the lab never launched {name}")
+    line("memory", path="lab", wrapper_counts=launches, captured_calls=captured,
+         replayed_calls=replayed, executed=executed, seconds=seconds)
+    return {"labs": labs, "rates": rates, "executed": executed, "captured": captured,
+            "replayed": replayed}
 
 
 def make_registry(n: int, rng: random.Random):
@@ -399,24 +648,27 @@ def main() -> int:
         return 1
     from handel_tpu_torch.kernels import build
     from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.lab_mont import lab_cios_fullwidth, lab_separated
     from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
     from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
     from handel_tpu_torch.ops import bn254_ref as bn
     from handel_tpu_torch.ops.fp import Field
 
     t_start = time.perf_counter()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    line("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
+    line("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
     built = build.build_all()
+    ptxas = {}
     for src, (_secs, log) in built.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  nvcc {src}: {ln.strip()}")
-    line("build", seconds=time.perf_counter() - t0, sources=sorted(built))
+        ptxas[src] = ptxas_summary(log)
+        for fn, (regs, st, ld) in ptxas[src].items():
+            print(f"  nvcc {src}: {fn}: {regs} registers, {st} bytes spill stores, "
+                  f"{ld} bytes spill loads")
+    line("build", seconds=time.perf_counter() - t0, sources=sorted(built), ptxas=ptxas)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -435,6 +687,12 @@ def main() -> int:
     R65 = Field(BLS12_381_P, backend="rns", device=dev)
     r46 = rns_kernel_phase(R46, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width}, rng)
     r65 = rns_kernel_phase(R65, {"random+edges": (1 << 20) + 16}, rng)
+    b3 = lab_kernel_phase(
+        F16, {"random+edges": (1 << 20) + 16, "lab_batch": 1 << 18, "f12_mul": f12_width}, rng
+    )
+    b3_24 = lab_kernel_phase(F24, {"random+edges": (1 << 20) + 16}, rng)
+    for kname in b3:
+        b3[kname].update(b3_24[kname])
 
     pairing_phase(dev, "cios")
     pairing_phase(dev, "rns")
@@ -447,49 +705,48 @@ def main() -> int:
         "dense": make_requests("dense", sks, DENSE_CANDIDATES, prng),
     }
     line("setup", registry=N_REGISTRY, host_keygen_s=time.perf_counter() - t0)
-    counters = {"fp_mont_mul": mont_mul, "rns_mont_mul_resident": rns_mul_resident}
+    counters = {"fp_mont_mul": mont_mul, "rns_mont_mul_resident": rns_mul_resident,
+                "lab_cios_fullwidth": lab_cios_fullwidth, "lab_separated": lab_separated}
     cons = BN254TorchScheme(batch_size=LANES, device=dev).constructor
     cios = verify_path("cios", cons, pks, reqs, counters, "fp_mont_mul",
-                       ("rns_mont_mul_resident",))
+                       ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"))
     rcons = BN254TorchScheme(batch_size=LANES, device=dev, fp_backend="rns").constructor
     rns = verify_path("rns", rcons, pks, reqs, counters, "rns_mont_mul_resident",
-                      ("fp_mont_mul",), conv_field=rcons.curves.F)
+                      ("fp_mont_mul", "lab_cios_fullwidth", "lab_separated"),
+                      conv_field=rcons.curves.F)
     profile_phase(cons, pks, reqs["range"][0], "mont_mul_kernel", "cios")
     profile_phase(rcons, pks, reqs["range"][0], "rns_mul_resident_kernel", "rns")
+    lab = lab_phase(dev, counters)
 
-    b1, b2 = k16["f12_mul"], r46["f12_mul"]
+    def entry(kname, source, replaces, launches, widths, fig, **extra):
+        return {
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in widths),
+            "ms": fig["ms"], "eager_ms": fig["eager_ms"], "plain_ms": fig["plain_ms"],
+            "bound_ms": fig["bound_ms"], "bound_by": fig["bound_by"],
+            "library_ms": None, "cols": fig["cols"], **extra,
+        }
+
+    # B1 and B2 at the Fp12 width of their verify path, with their launches
+    # there; B3a and B3b at 2^20 + 16 columns of 16 limbs, with the launches
+    # they executed in the lab run (captured calls beside them)
     print(json.dumps({"kernels": [
-        {
-            "name": "fp_mont_mul",
-            "route": "cuda",
-            "source": "handel_tpu_torch/csrc/fp_mont.cu",
-            "replaces": "handel_tpu/ops/fp.py:577",
-            "launches": cios["fp_mont_mul"],
-            "max_abs_err": max(r["max_abs_err"] for r in [*k16.values(), *k24.values()]),
-            "ms": b1["ms"],
-            "plain_ms": b1["plain_ms"],
-            "bound_ms": b1["bound_ms"],
-            "bound_by": b1["bound_by"],
-            "library_ms": None,
-        },
-        {
-            "name": "rns_mont_mul_resident",
-            "route": "cuda",
-            "source": "handel_tpu_torch/csrc/rns_mont.cu",
-            "replaces": "handel_tpu/ops/rns.py:571",
-            "launches": rns["rns_mont_mul_resident"],
-            "max_abs_err": max(r["max_abs_err"] for r in [*r46.values(), *r65.values()]),
-            "ms": b2["ms"],
-            "plain_ms": b2["plain_ms"],
-            "bound_ms": b2["bound_ms"],
-            "bound_by": b2["bound_by"],
-            "library_ms": None,
-        },
+        entry("fp_mont_mul", "handel_tpu_torch/csrc/fp_mont.cu", "handel_tpu/ops/fp.py:577",
+              cios["fp_mont_mul"], [*k16.values(), *k24.values()], k16["f12_mul"]),
+        entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
+              "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
+              [*r46.values(), *r65.values()], r46["f12_mul"]),
+        *(entry(kname, "handel_tpu_torch/csrc/lab_mont.cu", "scripts/fp_kernel_lab.py:234",
+                lab["executed"][kname], list(b3[kname].values()), b3[kname]["random+edges/16"],
+                captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])
+          for kname in ("lab_cios_fullwidth", "lab_separated")),
     ]}))
     line("total", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -26,6 +26,11 @@ limbs, BLS12-381 24.
 class, kernel B1) or "rns" (ops/rns.py `RnsField`, which `__new__`
 redirects to; its resident products run kernel B2). Canonical
 non-Montgomery boundary values are bit-identical across backends.
+
+`chained_marginal` is the one throughput method of the port's labs: the
+slope between two depths of a chain of dependent calls, each chain captured
+once in a CUDA graph on the card. `python -m handel_tpu_torch.ops.fp [batch]
+[backend]` prints the production field's marginal mont-muls/s on the card.
 """
 
 from __future__ import annotations
@@ -312,3 +317,162 @@ class Field:
         one = torch.zeros_like(a)
         one[0] = 1
         return self.mul(a, one)
+
+
+# -- chained-marginal throughput ----------------------------------------------
+
+
+def chain(fn, a, b, k: int):
+    """k dependent calls out = fn(out, b), starting from out = a."""
+    out = a
+    for _ in range(k):
+        out = fn(out, b)
+    return out
+
+
+class ChainTally:
+    """What `chained_marginal` ran on the card: graphs captured, calls of
+    `fn` captured (the graphs' depths), replays, and calls of `fn` replayed
+    (depth x replays). A wrapper's launch counter moves when a graph is
+    captured, not when it is replayed, so the kernels a run executed are
+    its counter's moves less `captured_calls` plus `replayed_calls`."""
+
+    def __init__(self):
+        self.graphs = 0
+        self.captured_calls = 0
+        self.replays = 0
+        self.replayed_calls = 0
+
+
+class ChainGraph:
+    """`chain(fn, a, b, k)` captured once in a torch.cuda.CUDAGraph.
+
+    `fn` runs three times eagerly on a side stream first, so that lazy
+    module loading, cached device constants and library handles happen
+    outside the capture (none of them is legal during it). `replay()`
+    reruns the k calls on the same input tensors and returns the output
+    tensor, overwritten in place. Capture errors propagate: there is no
+    eager fallback."""
+
+    def __init__(self, fn, a, b, k: int, tally: ChainTally | None = None):
+        side = torch.cuda.Stream(a.device)
+        side.wait_stream(torch.cuda.current_stream(a.device))
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn(a, b)
+        torch.cuda.current_stream(a.device).wait_stream(side)
+        torch.cuda.synchronize(a.device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = chain(fn, a, b, k)
+        self.depth = k
+        self.tally = tally
+        if tally is not None:
+            tally.graphs += 1
+            tally.captured_calls += k
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        if self.tally is not None:
+            self.tally.replays += 1
+            self.tally.replayed_calls += self.depth
+        return self.out
+
+
+def _best_chain_s(fn, a, b, k: int, trials: int, tally: ChainTally | None) -> float:
+    """Best of `trials` times, in seconds, of a k-deep chain. CUDA tensors:
+    one captured graph, each replay timed by CUDA events. CPU tensors: the
+    chain run eagerly, timed by perf_counter."""
+    import time
+
+    if a.is_cuda:
+        g = ChainGraph(fn, a, b, k, tally)
+        g.replay()  # the first replay uploads the graph
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        best = float("inf")
+        for _ in range(trials):
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        return best
+    chain(fn, a, b, k)  # warm
+    best = float("inf")
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        chain(fn, a, b, k)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def chained_marginal(fn, a, b, k1: int = 8, k2: int = 72, trials: int = 4,
+                     tally: ChainTally | None = None):
+    """Marginal throughput of a binary op under chained calls: the method
+    behind every rate of the kernel labs and `_throughput_bench`.
+
+    Times k1- and k2-deep chains of dependent `out = fn(out, b)` (best of
+    `trials` each) and reports the slope (k2 - k1) * batch / (t2 - t1): what
+    a call costs besides the chain's fixed overhead, which cancels in the
+    difference. On CUDA tensors each chain is captured once in a CUDA graph
+    and replayed, timed by CUDA events, so the host's issue rate drops out
+    too and the slope is the device time of one call; on CPU tensors the
+    chain runs eagerly. The tensors' device decides which. Returns
+    (rate_ops_per_s, floor_s); rate is None when the slope stays non-positive
+    after one retry (timing noise at tiny batches): a non-measurement, never
+    an absurd figure."""
+    t1 = _best_chain_s(fn, a, b, k1, trials, tally)
+    t2 = _best_chain_s(fn, a, b, k2, trials, tally)
+    if t2 <= t1:  # timing noise: one retry
+        t1 = _best_chain_s(fn, a, b, k1, trials, tally)
+        t2 = _best_chain_s(fn, a, b, k2, trials, tally)
+    if t2 <= t1:
+        return None, t1
+    batch = a.shape[-1]
+    rate = (k2 - k1) * batch / (t2 - t1)
+    floor = max(t1 - k1 * batch / rate, 0.0)
+    return rate, floor
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name for a CUDA device, "cpu" for the CPU."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def _throughput_bench(batch: int = 1 << 18, trials: int = 4, backend: str = "cios",
+                      device: str | torch.device | None = None):
+    """The production field's marginal mont-muls/s (`chained_marginal`) for
+    Field(bn.P, backend=...): cios runs kernel B1, rns the per-mul
+    `RnsField.mul`. Operands are seeded raw 16-bit limbs, as in the
+    reference. Prints one line naming the device; returns (rate, floor_s),
+    rate 0.0 when the slope is not measurable."""
+    from handel_tpu_torch.ops import bn254_ref as bn
+
+    F = Field(bn.P, backend=backend, device=device)
+    rng = np.random.default_rng(1)
+    shape = (F.nlimbs, batch)
+    a = torch.from_numpy(rng.integers(0, 1 << LIMB_BITS, shape, np.uint32).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 1 << LIMB_BITS, shape, np.uint32).astype(np.int32))
+    a, b = a.to(F.device), b.to(F.device)
+    k1, k2 = 8, 72
+    rate, floor = chained_marginal(F.mul, a, b, k1=k1, k2=k2, trials=trials)
+    name = device_name(F.device)
+    if rate is None:
+        print(f"{name}: marginal slope not measurable (floor ~{floor*1e3:.3f} ms at "
+              f"batch {batch}): increase batch or chain depth")
+        return 0.0, floor
+    print(f"{name}: {rate/1e6:.1f}M {bn.P.bit_length()}-bit mont-muls/s marginal "
+          f"[{backend}] (batch {batch}, chain {k1}->{k2}, floor ~{floor*1e3:.3f} ms)")
+    return rate, floor
+
+
+if __name__ == "__main__":
+    import sys
+
+    # call through the package module: this file is also `__main__`, and
+    # Field.__new__'s redirect to RnsField needs the package's Field class
+    from handel_tpu_torch.ops.fp import _throughput_bench as bench
+
+    bench(int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 20,
+          backend=sys.argv[2] if len(sys.argv) > 2 else "cios")

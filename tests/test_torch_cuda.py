@@ -191,3 +191,101 @@ def test_rns_verify_on_card(card):
     assert dev.batch_verify(b"m", [cand(range(3, 40)), cand(range(5, 9), forge=True)]) == [True, False]
     assert dev.batch_verify(b"m", [cand([0, 79]), cand([1, 78], forge=True)]) == [True, False]
     assert rns_mul_resident.launches > b2 and mont_mul.launches == b1
+
+
+LAB_FORMS = ("cios_fullwidth", "separated")
+
+
+@pytest.mark.parametrize("form", LAB_FORMS)
+@pytest.mark.parametrize("p", [bn.P, BLS12_381_P], ids=["bn254", "bls12_381"])
+@pytest.mark.parametrize("cols", [1, 31, 255, 257, 4099])
+def test_lab_kernels_match_plain_and_b1_at_ragged_widths(card, p, cols, form):
+    from handel_tpu_torch.kernels import lab_mont
+    from handel_tpu_torch.scripts.fp_kernel_lab import LabField
+
+    F = Field(p, device=card)
+    lab = LabField(F)
+    counter = getattr(lab_mont, f"lab_{form}")
+    rng = random.Random(cols + len(form))
+    xs = [rng.randrange(p) for _ in range(cols)]
+    ys = [rng.randrange(p) for _ in range(cols)]
+    a, b = F.pack(xs, mont=False), F.pack(ys, mont=False)
+    for threads in lab_mont.THREADS:
+        before = counter.launches
+        got = lab.kernel(form, threads)(a, b)
+        assert counter.launches == before + 1
+        assert torch.equal(got, lab.body(form)(a, b))
+        assert torch.equal(got, F.mul(a, b))  # kernel B1
+    rinv = pow(F.mont_r, -1, p)
+    assert F.unpack(got, mont=False) == [x * y * rinv % p for x, y in zip(xs, ys)]
+    # raw 16-bit digits: the plain body's bits
+    gen = torch.Generator().manual_seed(cols)
+    ra = torch.randint(0, 1 << 16, (F.nlimbs, cols), generator=gen, dtype=torch.int32).to(card)
+    rb = torch.randint(0, 1 << 16, (F.nlimbs, cols), generator=gen, dtype=torch.int32).to(card)
+    assert torch.equal(lab.kernel(form)(ra, rb), lab.body(form)(ra, rb))
+    # row slices of a wider operand take the kernel's row stride
+    wide = torch.cat([a, a], dim=1)
+    assert torch.equal(lab.kernel(form)(wide[:, cols:], b), got)
+
+
+def test_lab_wrapper_contract(card):
+    from handel_tpu_torch.kernels.lab_mont import lab_cios_fullwidth, lab_separated
+    from handel_tpu_torch.scripts.fp_kernel_lab import LabField
+
+    lab = LabField(Field(bn.P, device=card))
+    a = lab.F.pack([3, 4, 5])
+    for k in (lab_cios_fullwidth, lab_separated):
+        assert k(lab, a[:, :0], a[:, :0]).shape == (lab.n, 0)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            k(lab, a.cpu(), a)
+        with pytest.raises(ValueError, match="dtype"):
+            k(lab, a.long(), a.long())
+        with pytest.raises(ValueError, match="shape"):
+            k(lab, a[:8], a[:8])
+        with pytest.raises(ValueError, match="column stride"):
+            k(lab, a.t().contiguous().t(), a)
+        with pytest.raises(ValueError, match="shapes differ"):
+            k(lab, a, a[:, :2])
+        with pytest.raises(ValueError, match="threads"):
+            k(lab, a, a, threads=1024)
+        before = k.launches
+        assert lab.F.unpack(k(lab, a, lab.F.pack([2, 2, 2]))) == [6, 8, 10]
+        assert k.launches == before + 1
+
+
+@pytest.mark.parametrize("kernel", ["fp_mont_mul", "rns_mont_mul_resident",
+                                    "lab_cios_fullwidth", "lab_separated"])
+def test_graph_replay_equals_eager_chain(card, kernel):
+    """A chain captured in one CUDA graph and replayed over a sentinel gives
+    the eager chain's bits; the launch counter moves at capture only."""
+    from handel_tpu_torch.kernels import lab_mont
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+    from handel_tpu_torch.ops.fp import ChainGraph, ChainTally, chain
+    from handel_tpu_torch.scripts.fp_kernel_lab import LabField
+
+    F = Field(bn.P, device=card)
+    rng = random.Random(5)
+    xs = [rng.randrange(bn.P) for _ in range(1000)]
+    a, b = F.pack(xs), F.pack(xs[::-1])
+    if kernel == "fp_mont_mul":
+        fn, counter = F.mul, mont_mul
+    elif kernel == "rns_mont_mul_resident":
+        R = Field(bn.P, backend="rns", device=card)
+        a, b = R.to_resident(a), R.to_resident(b)
+        fn, counter = R.mul_resident, rns_mul_resident
+    else:
+        form = kernel.removeprefix("lab_")
+        fn, counter = LabField(F).kernel(form), getattr(lab_mont, kernel)
+    tally = ChainTally()
+    before = counter.launches
+    g = ChainGraph(fn, a, b, 6, tally)
+    assert counter.launches == before + 3 + 6  # 3 warm calls, 6 captured
+    g.out.fill_(-1)
+    before = counter.launches
+    got = g.replay().clone()
+    g.replay()
+    assert counter.launches == before
+    assert tally.graphs == 1 and tally.captured_calls == 6
+    assert (tally.replays, tally.replayed_calls) == (2, 12)
+    assert torch.equal(got, chain(fn, a, b, 6))
