@@ -7,19 +7,29 @@ Phases, one line each, any failure exits non-zero with no result line:
 
   1. device   the card's name, and its name and power limit from nvidia-smi
   2. build    nvcc builds every kernel source of the port (csrc/*.cu), one
-              process per source, all at once
-  3. kernel   kernel B1, the Montgomery multiply (Field.mul on CUDA tensors),
+              process per source, all at once; per kernel instance its
+              registers, spills and static shared memory (ptxas), B2's
+              dynamic shared memory and its IMMA (int8 tensor-core)
+              instructions in the built SASS (cuobjdump); a B2 instance
+              without IMMA, or a B1 or B2 instance that spills, fails
+  3. ragged   B1 (each lanes-per-column instance) and B2 (each tile width)
+              against their plain versions, exactly, at 1, 7, 31, 33, 63,
+              65, 127, 129, 4099 and 13,824 columns, contiguous and as a
+              row slice at a column offset of 3 (rows not 16-byte aligned)
+     kernel   kernel B1, the Montgomery multiply (Field.mul on CUDA tensors),
               against its plain PyTorch version on the card, exact equality,
               for BN254 (16 limbs) and BLS12-381 (24 limbs): 2^20 seeded
               random columns plus edge columns, and the widths the verify
               path gives it (an Fp12 multiply at 128 lanes; the widest
-              stacked G2 add of the dense class); kernel and plain times
+              stacked G2 add of the dense class); kernel and plain times,
+              and the device time of each lanes-per-column instance
      rns_kernel  kernel B2, the resident RNS Montgomery multiply
               (RnsField.mul_resident on CUDA tensors), against its plain
               version, exact equality, for BN254 (k_all 46) and BLS12-381
               (k_all 65): 2^20 + 16 random residue columns with 0 and m_i - 1
               first, and an Fp12 multiply at 128 lanes; the integer identity
-              x y M^-1 mod p through the resident conversions on a prefix
+              x y M^-1 mod p through the resident conversions on a prefix;
+              the device time of each tile width
      lab_kernel  kernels B3a and B3b, the kernel lab's two formulations of
               B1's product (csrc/lab_mont.cu), each against its plain version
               and against B1, exact equality, at 16 limbs (2^20 + 16 columns
@@ -46,9 +56,12 @@ Phases, one line each, any failure exits non-zero with no result line:
      rns_verify  the same launches through BN254TorchScheme(fp_backend="rns")
               (the resident pairing): the same verdicts, B2 launched and B1
               not, conversion counts, p50 per class, peak memory; a 2-lane
-              resident pairing against the scalar oracle
+              resident pairing against the scalar oracle. Each path prints
+              its kernel's calls by column count (`widths`)
   5. profile  one range launch of each path under torch.profiler: device
-              activities, busy time against wall time, the costliest kernels
+              activities, busy time against wall time, the costliest kernels;
+              the path's kernel's device ms against the sum of its bound
+              over the launch's calls
   6. lab      the kernel lab (python -m handel_tpu_torch.scripts.fp_kernel_lab)
               at batch 2^18 and 2^20, the outer-product lab
               (...scripts.mxu_limb_lab) at 2^15 with the card's int8 ceiling,
@@ -190,17 +203,12 @@ def replay_check(fn, a, b, counter, depth: int = 8) -> None:
 
 def ptxas_summary(log: str) -> dict[str, list[int]]:
     """{kernel<template args>: [registers, spill store bytes, spill load
-    bytes]} from nvcc -Xptxas -v output."""
+    bytes, static shared memory bytes]} from nvcc -Xptxas -v output."""
     out, cur, spill = {}, None, [0, 0]
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", m.group(1))
-            if k:
-                args = re.findall(r"Li(\d+)E", k.group(2))
-                cur = f"{k.group(1)}<{','.join(args)}>"
-            else:
-                cur = m.group(1)
+            cur = kernel_label(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -208,8 +216,38 @@ def ptxas_summary(log: str) -> dict[str, list[int]]:
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur is not None:
-            out[cur] = [int(m.group(1)), *spill]
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[cur] = [int(m.group(1)), *spill, int(smem.group(1)) if smem else 0]
             cur, spill = None, [0, 0]
+    return out
+
+
+def kernel_label(mangled: str) -> str:
+    """kernel<template args> for a mangled kernel name, else the name."""
+    k = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", mangled)
+    if not k:
+        return mangled
+    return f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+
+
+def sass_counts(lib, opcode: str) -> dict[str, int]:
+    """{kernel<template args>: instructions of `opcode`} in a built
+    library's SASS (cuobjdump -sass, from nvcc's toolkit)."""
+    from pathlib import Path
+
+    from handel_tpu_torch.kernels.build import nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = kernel_label(m.group(1))
+            out.setdefault(cur, 0)
+        elif cur is not None and re.search(rf"\b{opcode}\b", ln):
+            out[cur] += 1
     return out
 
 
@@ -257,7 +295,7 @@ def rns_kernel_phase(F, widths: dict[str, int], rng) -> dict:
     any difference."""
     import torch
 
-    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+    from handel_tpu_torch.kernels.rns_mont import TILES, rns_mul_resident, tile_for
 
     dev = F.device
     out = {}
@@ -291,6 +329,9 @@ def rns_kernel_phase(F, widths: dict[str, int], rng) -> dict:
         out[label] = dict(
             k_all=F.k_all, cols=cols, max_abs_err=err, ms=ms, eager_ms=eager_ms,
             plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            tile=tile_for(cols),
+            ms_by_tile=each_instance(rns_mul_resident, "tile", TILES,
+                                     lambda: graph_ms(F.mul_resident, a, b)),
         )
         line("rns_kernel", **out[label], width=label)
         del a, b, got, want
@@ -324,12 +365,72 @@ def operand_pair(F, cols: int, rng: np.random.Generator, with_edges: bool):
     return a, b
 
 
+def each_instance(kernel, attr: str, choices, measure) -> dict:
+    """{choice: measure()} with the wrapper's `attr` (B1's lanes per
+    column, B2's tile width) forced to each choice in turn, then restored."""
+    keep = getattr(kernel, attr)
+    out = {}
+    try:
+        for choice in choices:
+            setattr(kernel, attr, choice)
+            out[str(choice)] = measure()
+    finally:
+        setattr(kernel, attr, keep)
+    return out
+
+
+# widths around B1's warps and B2's tiles, and the Fp12 width at 128 lanes
+RAGGED = (1, 7, 31, 33, 63, 65, 127, 129, 4099, 54 * 2 * 128)
+
+
+def ragged_phase(cios_fields, rns_fields, rng) -> dict:
+    """B1 (every lanes-per-column instance and the wrapper's own choice) and
+    B2 (every tile width) against their plain versions, exactly, at each
+    RAGGED width: on contiguous operands, and on a row slice of a wider
+    array at a column offset of 3, whose rows are not 16-byte aligned (B2's
+    4-byte copies). Returns {kernel/rows: widths checked}. Raises on any
+    difference."""
+    import torch
+
+    from handel_tpu_torch.kernels.fp_mont import TPI_CHOICES, mont_mul
+    from handel_tpu_torch.kernels.rns_mont import TILES, rns_mul_resident
+
+    def check(name, F, fn, plain, full_a, full_b, kernel, attr, choices):
+        cols = full_a.shape[1] - 3
+        a, b = full_a[:, :cols].contiguous(), full_b[:, :cols].contiguous()
+        sliced = full_a[:, 3:]
+        want, want_sliced = plain(a, b), plain(sliced, b)
+        got = each_instance(kernel, attr, (getattr(kernel, attr), *choices),
+                            lambda: (fn(a, b), fn(sliced, b)))
+        for choice, (g, gs) in got.items():
+            if not (torch.equal(g, want) and torch.equal(gs, want_sliced)):
+                raise AssertionError(f"{name} != plain at {cols} columns ({attr} {choice})")
+
+    out = {}
+    for F in cios_fields:
+        for cols in RAGGED:
+            a, b = operand_pair(F, cols + 3, rng, with_edges=cols >= 16)
+            check("B1", F, F.mul, F._mul_plain, a.to(F.device), b.to(F.device),
+                  mont_mul, "tpi", TPI_CHOICES)
+        out[f"fp_mont_mul/{F.nlimbs}"] = list(RAGGED)
+    for F in rns_fields:
+        for cols in RAGGED:
+            a = random_residues(F, cols + 3, rng).to(F.device)
+            b = random_residues(F, cols + 3, rng).to(F.device)
+            check("B2", F, F.mul_resident, F._mul_resident_core, a, b,
+                  rns_mul_resident, "tile", TILES)
+        out[f"rns_mont_mul_resident/{F.k_all}"] = list(RAGGED)
+    torch.cuda.synchronize()
+    line("ragged", checked=out, unaligned_offset=3, max_abs_err=0)
+    return out
+
+
 def kernel_phase(F, widths: dict[str, int], rng, with_edges: bool) -> dict:
     """Kernel against the plain version on the card at each width; returns
     per-width figures. Raises on any difference."""
     import torch
 
-    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.fp_mont import TPI_CHOICES, lanes_for, mont_mul
 
     dev = F.device
     out = {}
@@ -361,6 +462,8 @@ def kernel_phase(F, widths: dict[str, int], rng, with_edges: bool) -> dict:
         out[label] = dict(
             nlimbs=F.nlimbs, cols=cols, max_abs_err=err, ms=ms, eager_ms=eager_ms,
             plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, launches=launches,
+            tpi=lanes_for(cols),
+            ms_by_tpi=each_instance(mont_mul, "tpi", TPI_CHOICES, lambda: graph_ms(F.mul, a, b)),
         )
         line("kernel", **out[label], width=label)
         del a, b, got, want
@@ -441,8 +544,7 @@ def lab_phase(dev, counters) -> dict:
     from handel_tpu_torch.ops.fp import _throughput_bench
     from handel_tpu_torch.scripts import fp_kernel_lab, mxu_limb_lab
 
-    for c in counters.values():
-        c.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     labs = {f"fp_kernel_lab/{batch}": fp_kernel_lab.main([str(batch)])
             for batch in (1 << 18, 1 << 20)}
@@ -550,15 +652,19 @@ def pairing_phase(device, backend: str) -> None:
     line("pairing", backend=backend, resident=pr.resident, lanes=2, matches_oracle=True)
 
 
-def profile_phase(cons, pks, requests, kernel: str, label: str) -> None:
+def profile_phase(cons, pks, requests, kernel: str, label: str, counter, bound) -> dict:
     """One verify launch under torch.profiler (device activity only): the
     kernels and copies it ran, the device's busy time against the wall time
     (the idle share, inflated by the profiler's own host cost), and the
-    activities that took the most device time."""
+    activities that took the most device time. For the path's kernel
+    (`kernel` in its device name, `counter` its wrapper): its device ms in
+    the launch against the sum of bound(cols) over the launch's calls, from
+    the wrapper's width histogram. Returns the kernel's figures."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = dict(counter.widths)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -578,11 +684,33 @@ def profile_phase(cons, pks, requests, kernel: str, label: str) -> None:
     if not ours:
         raise AssertionError(f"the profiled launch ran no {kernel}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    calls = {cols: n - before.get(cols, 0) for cols, n in counter.widths.items()
+             if n != before.get(cols, 0)}
+    fig = {"count": sum(c for c, _ in ours), "ms": sum(ms for _, ms in ours),
+           "calls_by_cols": {str(k): v for k, v in sorted(calls.items())},
+           "bound_ms": sum(n * bound(cols)[0] for cols, n in calls.items())}
     line("profile", path=label, launch_class="range", wall_ms=wall_ms,
          device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-         device_activities=len(acts),
-         **{kernel: {"count": sum(c for c, _ in ours), "ms": sum(ms for _, ms in ours)}},
+         device_activities=len(acts), **{kernel: fig},
          top=[{"name": k[:80], "count": c, "ms": ms} for k, (c, ms) in top])
+    return fig
+
+
+def zero_counts(counters) -> None:
+    """Every kernel's launch count to 0, and B1's and B2's width histograms
+    with it."""
+    for c in counters.values():
+        if hasattr(c, "reset"):
+            c.reset()
+        else:
+            c.launches = 0
+
+
+def width_histograms(counters) -> dict:
+    """{kernel: {columns: launches}} for the wrappers that count widths and
+    launched in the run."""
+    return {k: {str(cols): n for cols, n in sorted(c.widths.items())}
+            for k, c in counters.items() if getattr(c, "widths", None)}
 
 
 def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, conv_field=None):
@@ -604,8 +732,7 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
 
     # the main path: counts zeroed just before, read just after
     torch.cuda.reset_peak_memory_stats(dev)
-    for c in counters.values():
-        c.launches = 0
+    zero_counts(counters)
     if conv_field is not None:
         conv_field.reset_conversion_counts()
     per_class = {}
@@ -617,6 +744,7 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
             bad = [j for j, (g, e) in enumerate(zip(got, expect)) if g != e]
             raise AssertionError(f"{label} {kind} verdicts wrong at lanes {bad}")
     launches = {k: c.launches for k, c in counters.items()}
+    widths = width_histograms(counters)
     conv = conv_field.conversion_counts() if conv_field is not None else None
     if launches[expect_launch] == 0:
         raise AssertionError(f"the {label} path never launched {expect_launch}")
@@ -636,6 +764,7 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
              launches_per_verify=per_class[kind])
     line("memory", path=label, max_memory_allocated=peak, launches=launches,
          conversion_counts=conv)
+    line("widths", path=label, launches_by_cols=widths)
     return launches
 
 
@@ -649,6 +778,8 @@ def main() -> int:
     from handel_tpu_torch.kernels import build
     from handel_tpu_torch.kernels.fp_mont import mont_mul
     from handel_tpu_torch.kernels.lab_mont import lab_cios_fullwidth, lab_separated
+    from handel_tpu_torch.kernels.rns_mont import SUPPORTED_BASES as RNS_BASES
+    from handel_tpu_torch.kernels.rns_mont import TILES as RNS_TILES
     from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
     from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
     from handel_tpu_torch.ops import bn254_ref as bn
@@ -662,13 +793,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build.build_all()
+    seconds = time.perf_counter() - t0
     ptxas = {}
     for src, (_secs, log) in built.items():
         ptxas[src] = ptxas_summary(log)
-        for fn, (regs, st, ld) in ptxas[src].items():
+        for fn, (regs, st, ld, smem) in ptxas[src].items():
             print(f"  nvcc {src}: {fn}: {regs} registers, {st} bytes spill stores, "
-                  f"{ld} bytes spill loads")
-    line("build", seconds=time.perf_counter() - t0, sources=sorted(built), ptxas=ptxas)
+                  f"{ld} bytes spill loads, {smem} bytes static shared memory")
+    # kernel B2: its tiles' dynamic shared memory, and its int8 tensor-core
+    # products (IMMA) in the built SASS; every B1 and B2 instance spill-free
+    import ctypes
+
+    smem_of = ctypes.CDLL(str(build.library_path("rns_mont"))).handel_rns_smem_bytes
+    dyn_smem = {f"rns_mul_resident_kernel<{ka},{kb},{tile}>": smem_of(ka, kb, tile)
+                for ka, kb in RNS_BASES for tile in RNS_TILES}
+    imma = {k: n for k, n in sass_counts(build.library_path("rns_mont"), "IMMA").items()
+            if k.startswith("rns_mul_resident_kernel")}
+    line("build", seconds=seconds, sources=sorted(built), ptxas=ptxas,
+         dynamic_smem=dyn_smem, imma=imma)
+    if sorted(imma) != sorted(dyn_smem) or not all(imma.values()):
+        raise AssertionError(f"a B2 instance without IMMA instructions: {imma}")
+    for src in ("fp_mont", "rns_mont"):
+        if not ptxas[src]:
+            raise AssertionError(f"no ptxas report for {src}: spills cannot be checked")
+        for fn, (_regs, st, ld, _smem) in ptxas[src].items():
+            if st or ld:
+                raise AssertionError(f"{fn} spills ({st} bytes stored, {ld} loaded)")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -678,13 +828,14 @@ def main() -> int:
     # the dense class's first tree-sum stage adds two halves of N*C points;
     # its second stacked multiply is 6 Fp2 products, 3 base products each
     widest = 9 * N_REGISTRY * LANES
+    R46 = Field(bn.P, backend="rns", device=dev)
+    R65 = Field(BLS12_381_P, backend="rns", device=dev)
+    ragged_phase((F16, F24), (R46, R65), rng)
     k16 = kernel_phase(
         F16, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width, "g2_add_dense": widest},
         rng, with_edges=True,
     )
     k24 = kernel_phase(F24, {"random+edges": (1 << 20) + 16}, rng, with_edges=True)
-    R46 = Field(bn.P, backend="rns", device=dev)
-    R65 = Field(BLS12_381_P, backend="rns", device=dev)
     r46 = rns_kernel_phase(R46, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width}, rng)
     r65 = rns_kernel_phase(R65, {"random+edges": (1 << 20) + 16}, rng)
     b3 = lab_kernel_phase(
@@ -714,8 +865,13 @@ def main() -> int:
     rns = verify_path("rns", rcons, pks, reqs, counters, "rns_mont_mul_resident",
                       ("fp_mont_mul", "lab_cios_fullwidth", "lab_separated"),
                       conv_field=rcons.curves.F)
-    profile_phase(cons, pks, reqs["range"][0], "mont_mul_kernel", "cios")
-    profile_phase(rcons, pks, reqs["range"][0], "rns_mul_resident_kernel", "rns")
+    on_path = {
+        "fp_mont_mul": profile_phase(cons, pks, reqs["range"][0], "mont_mul_kernel", "cios",
+                                     mont_mul, lambda c: mont_mul_bound_ms(16, c)),
+        "rns_mont_mul_resident": profile_phase(
+            rcons, pks, reqs["range"][0], "rns_mul_resident_kernel", "rns", rns_mul_resident,
+            lambda c: rns_bound_ms(rcons.curves.F, c)),
+    }
     lab = lab_phase(dev, counters)
 
     def entry(kname, source, replaces, launches, widths, fig, **extra):
@@ -733,10 +889,12 @@ def main() -> int:
     # they executed in the lab run (captured calls beside them)
     print(json.dumps({"kernels": [
         entry("fp_mont_mul", "handel_tpu_torch/csrc/fp_mont.cu", "handel_tpu/ops/fp.py:577",
-              cios["fp_mont_mul"], [*k16.values(), *k24.values()], k16["f12_mul"]),
+              cios["fp_mont_mul"], [*k16.values(), *k24.values()], k16["f12_mul"],
+              on_path_range_launch=on_path["fp_mont_mul"]),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
-              [*r46.values(), *r65.values()], r46["f12_mul"]),
+              [*r46.values(), *r65.values()], r46["f12_mul"],
+              on_path_range_launch=on_path["rns_mont_mul_resident"]),
         *(entry(kname, "handel_tpu_torch/csrc/lab_mont.cu", "scripts/fp_kernel_lab.py:234",
                 lab["executed"][kname], list(b3[kname].values()), b3[kname]["random+edges/16"],
                 captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])

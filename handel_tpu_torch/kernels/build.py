@@ -12,7 +12,8 @@ The file name carries a hash of the sources and flags, so an edited source
 rebuilds and a stale library is never loaded. Only the repository's own
 sources and the CUDA toolkit's headers are compiled; no PyTorch header is
 included, which keeps a build at seconds. `build_all` starts one nvcc per
-source, all at once.
+source, all at once. nvcc's output (ptxas's register and spill report) is
+kept beside each library as `<library>.log`.
 """
 
 from __future__ import annotations
@@ -78,20 +79,28 @@ def _finish(name: str, started) -> str:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    log_path(out).write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return log
+
+
+def log_path(library: Path) -> Path:
+    """Where nvcc's output for `library` is kept."""
+    return library.with_name(library.name + ".log")
 
 
 def build_all(names=KERNELS) -> dict[str, tuple[float, str]]:
     """Build every named source that is not built yet, one nvcc process per
     source, all started together. Returns {name: (seconds, nvcc output)};
-    an already-built library reports (0.0, "")."""
+    an already-built library reports 0.0 seconds and the output kept from
+    its build."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
     out = {}
     for n, s in started.items():
         if s is None:
-            out[n] = (0.0, "")
+            kept = log_path(library_path(n))
+            out[n] = (0.0, kept.read_text() if kept.exists() else "")
         else:
             log = _finish(n, s)
             out[n] = (time.perf_counter() - t0, log)

@@ -3,15 +3,37 @@
 `mont_mul` is the one wrapper: it checks its operands, allocates the output
 with torch.empty, launches on torch.cuda.current_stream() and raises if the
 launch was refused. `mont_mul.launches` counts launches, and only launches:
-a run can read it to show that its path went through the kernel. The
-library is built and loaded at the first launch, never at import.
+a run can read it to show that its path went through the kernel;
+`mont_mul.widths` counts the launches by column count, and `reset()` zeroes
+both. The library is built and loaded at the first launch, never at import.
+
+Lanes per column: the kernel shares each column among TPI = 2 or 4 lanes
+of a warp for narrow calls, and runs one lane a column for wide ones
+(csrc/fp_mont.cu). `lanes_for(cols)` is the width rule that picks the
+instance; `mont_mul.tpi`, when set, forces one (for timing each).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
+
+# lanes per column the kernel is instantiated for
+TPI_CHOICES = (1, 2, 4)
+# the width rule, from device times on the H100 (PERF.md, PR 4): 4 lanes a
+# column below 4,608 columns, 2 below 27,648, one lane from there on (where
+# the one-lane routine reads at the byte-bound end as the parent did)
+FOUR_LANES_BELOW = 4608
+ONE_LANE_FROM = 27648
+
+
+def lanes_for(cols: int) -> int:
+    """Lanes per column for a call of `cols` columns."""
+    if cols < FOUR_LANES_BELOW:
+        return 4
+    return 2 if cols < ONE_LANE_FROM else 1
 
 
 class MontMulKernel:
@@ -24,7 +46,14 @@ class MontMulKernel:
 
     def __init__(self):
         self.launches = 0
+        self.widths: Counter[int] = Counter()
+        self.tpi: int | None = None
         self._fn = None
+
+    def reset(self) -> None:
+        """Zero the launch count and the width histogram."""
+        self.launches = 0
+        self.widths.clear()
 
     def _entry(self):
         if self._fn is None:
@@ -37,6 +66,7 @@ class MontMulKernel:
                 ctypes.c_void_p, ctypes.c_int64,  # out, ldo
                 ctypes.c_int64, ctypes.c_int,  # cols, nlimbs16
                 ctypes.c_void_p, ctypes.c_uint32,  # p_words, n0
+                ctypes.c_int,  # lanes per column
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -71,6 +101,9 @@ class MontMulKernel:
         out = torch.empty((n, cols), dtype=torch.int32, device=dev)
         if cols == 0:
             return out
+        tpi = self.tpi if self.tpi is not None else lanes_for(cols)
+        if tpi not in TPI_CHOICES:
+            raise ValueError(f"mont_mul: {tpi} lanes per column; built for {TPI_CHOICES}")
         fn = self._entry()
         p_words = (ctypes.c_uint32 * len(field.p_words))(*field.p_words)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -79,11 +112,12 @@ class MontMulKernel:
                 a.data_ptr(), a.stride(0),
                 b.data_ptr(), b.stride(0),
                 out.data_ptr(), out.stride(0),
-                cols, n, p_words, field.n0_32, stream,
+                cols, n, p_words, field.n0_32, tpi, stream,
             )
         if rc != 0:
             raise RuntimeError(f"mont_mul launch failed: cudaError {rc}")
         self.launches += 1
+        self.widths[cols] += 1
         return out
 
 

@@ -31,24 +31,36 @@ def card():
     return torch.device("cuda", 0)
 
 
+# widths around the kernels' tiles and warps, and the Fp12 width at 128 lanes
+RAGGED = [1, 7, 31, 33, 63, 65, 127, 129, 255, 257, 4099, 13824]
+
+
 @pytest.mark.parametrize("p", [bn.P, BLS12_381_P], ids=["bn254", "bls12_381"])
-@pytest.mark.parametrize("cols", [1, 31, 255, 257, 4099])
+@pytest.mark.parametrize("cols", RAGGED)
 def test_kernel_matches_plain_at_ragged_widths(card, p, cols):
-    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.fp_mont import TPI_CHOICES, mont_mul
 
     F = Field(p, device=card)
     rng = random.Random(cols)
     xs = [rng.randrange(p) for _ in range(cols)]
     ys = [rng.randrange(p) for _ in range(cols)]
     a, b = F.pack(xs), F.pack(ys)
-    before = mont_mul.launches
-    got = F.mul(a, b)
-    assert mont_mul.launches == before + 1
-    assert torch.equal(got, F._mul_plain(a, b))
-    assert F.unpack(got) == [x * y % p for x, y in zip(xs, ys)]
-    # row slices of a wider operand take the kernel's row stride
-    wide = torch.cat([a, a], dim=1)
-    assert torch.equal(F.mul(wide[:, cols:], b), got)
+    want = F._mul_plain(a, b)
+    assert F.unpack(want) == [x * y % p for x, y in zip(xs, ys)]
+    # row slices of a wider operand take the kernel's row stride; an odd
+    # column offset leaves the rows unaligned
+    wide = torch.cat([a] * 4, dim=1)
+    try:
+        for tpi in (None, *TPI_CHOICES):
+            mont_mul.tpi = tpi
+            before = mont_mul.launches
+            got = F.mul(a, b)
+            assert mont_mul.launches == before + 1
+            assert torch.equal(got, want), tpi
+            assert torch.equal(F.mul(wide[:, cols:2 * cols], b), want), tpi
+            assert torch.equal(F.mul(wide[:, 3:3 + cols], b), F._mul_plain(wide[:, 3:3 + cols], b))
+    finally:
+        mont_mul.tpi = None
 
 
 def test_wrapper_contract(card):
@@ -84,19 +96,29 @@ def _residues(F, cols, seed):
 
 
 @pytest.mark.parametrize("p", [bn.P, BLS12_381_P], ids=["bn254", "bls12_381"])
-@pytest.mark.parametrize("cols", [1, 31, 127, 129, 4099])
+@pytest.mark.parametrize("cols", RAGGED)
 def test_rns_kernel_matches_plain_at_ragged_widths(card, p, cols):
-    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+    from handel_tpu_torch.kernels.rns_mont import TILES, rns_mul_resident
 
     F = Field(p, backend="rns", device=card)
     a, b = _residues(F, cols, cols).to(card), _residues(F, cols, cols + 1).to(card)
-    before = rns_mul_resident.launches
-    got = F.mul_resident(a, b)
-    assert rns_mul_resident.launches == before + 1
-    assert torch.equal(got, F._mul_resident_core(a, b))
-    # row slices of a wider operand take the kernel's row stride
-    wide = torch.cat([a, a], dim=1)
-    assert torch.equal(F.mul_resident(wide[:, cols:], b), got)
+    want = F._mul_resident_core(a, b)
+    # row slices of a wider operand take the kernel's row stride: at a
+    # column offset of 3 the rows are not 16-byte aligned (4-byte copies)
+    wide = torch.cat([a] * 4, dim=1)
+    default = rns_mul_resident.tile
+    try:
+        for tile in TILES:
+            rns_mul_resident.tile = tile
+            before = rns_mul_resident.launches
+            got = F.mul_resident(a, b)
+            assert rns_mul_resident.launches == before + 1
+            assert torch.equal(got, want), tile
+            assert torch.equal(F.mul_resident(wide[:, cols:2 * cols], b), want), tile
+            assert torch.equal(F.mul_resident(wide[:, 3:3 + cols], b),
+                               F._mul_resident_core(wide[:, 3:3 + cols], b)), tile
+    finally:
+        rns_mul_resident.tile = default
     # the integer identity through the resident conversions
     rng = random.Random(cols)
     xs = [rng.randrange(p) for _ in range(cols)]

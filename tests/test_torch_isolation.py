@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of handel_tpu, no silent CPU.
 
-* Every module of handel_tpu_torch, and chip_smoke.py, imports in a fresh
-  interpreter where `jax` cannot be imported and a finder refuses every
-  `handel_tpu` module (but not `handel_tpu_torch`). tests/conftest.py
-  imports jax into every test process, so this runs in a subprocess.
+* Every module of handel_tpu_torch, chip_smoke.py and kernel_times.py
+  imports in a fresh interpreter where `jax` cannot be imported and a
+  finder refuses every `handel_tpu` module (but not `handel_tpu_torch`).
+  tests/conftest.py imports jax into every test process, so this runs in a
+  subprocess.
 * A static scan of the same files finds no import of either.
 * Asking for `cuda` without a card raises; CPU tensors launch no kernel.
 """
@@ -18,7 +19,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "handel_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 
 BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -42,6 +43,7 @@ for info in pkgutil.walk_packages(handel_tpu_torch.__path__, "handel_tpu_torch."
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+import kernel_times  # noqa: F401
 leaked = sorted(
     m for m, mod in sys.modules.items()
     if mod is not None and (m == "jax" or m.startswith(("jax.", "handel_tpu.")))
