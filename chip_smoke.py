@@ -71,8 +71,22 @@ Phases, one line each, any failure exits non-zero with no result line:
               B3b must run here, B2 must not; the kernels a lab run executed
               are its wrapper counts less the calls captured into graphs plus
               the calls the graphs replayed.
+  7. round    a Handel round through the port alone: the port's LocalCluster
+              of 8 nodes on BN254TorchScheme(batch_size=128) (cios), with a
+              forged level-1 candidate (a one-bit multisignature signed by a
+              key outside the registry) injected into node 0 before the wait.
+              Every node's final signature must reach the threshold and
+              verify on the host oracle, the forgery must fail a device
+              verdict (sigVerifyFailed >= 1), the store's merges must reach
+              the device combine (combineDeviceGroups >= 1), B1 must launch
+              and B2, B3a, B3b must not; an exception out of the
+              constructor's batch_verify or device_combine, or a dead node
+              task, fails the round at once. The line gives the wall time from
+              start() to the last final signature, the verify launches and
+              candidates, the per-launch verify p50, the combine groups,
+              B1's calls by column count and peak device memory.
 
-Each path of phases 4 and 6 is one main-path run: every kernel's launch
+Each path of phases 4, 6 and 7 is one main-path run: every kernel's launch
 count is set to 0 just before it and read just after. Then one JSON line of
 kernel figures, the nvidia-smi line again, and last {"ok": true, "device":
 {...}}. Exits non-zero without a CUDA device.
@@ -97,6 +111,11 @@ LANES = 128
 RANGE_CANDIDATES = 64
 DENSE_CANDIDATES = 126
 TIMED_LAUNCHES = 3
+ROUND_NODES = 8
+ROUND_TIMEOUT_S = 600.0
+# a secret key outside the round's registry (its keys come from
+# new_keypair(seed=i), SHA-256 derived): the forger of phase 7
+FORGER_SCALAR = 0x5EED_F0E6
 BLS12_381_P = int(
     "1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f6241eabfffeb153ffffb9feffffffffaaab",
     16,
@@ -768,6 +787,144 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
     return launches
 
 
+def round_phase(dev, counters) -> dict:
+    """A Handel round on `dev` through the port's own harness (phase 7).
+
+    The engine is prepared first (registry commit, warmup launch, combine
+    classes 2, 4 and 8); then every count is zeroed, the nodes start, the
+    forged candidate goes to node 0, and the round runs to complete
+    success. The constructor's `batch_verify` and `device_combine` record
+    any exception they raise and stop the nodes: the processing loop would
+    requeue a candidate whose launch failed, so the round fails on the
+    first recorded one instead.
+    Raises on any failed check; returns the round's figures."""
+    import asyncio
+
+    import torch
+
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.core.crypto import MultiSignature, verify_multisignature
+    from handel_tpu_torch.core.net import Packet
+    from handel_tpu_torch.core.test_harness import LocalCluster
+    from handel_tpu_torch.core.trace import LogHistogram
+    from handel_tpu_torch.models.bn254 import BN254SecretKey
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+
+    t0 = time.perf_counter()
+    scheme = BN254TorchScheme(batch_size=LANES, device=dev)
+    failures: list[BaseException] = []
+
+    def recorded(fn):
+        def call(*args, **kw):
+            try:
+                return fn(*args, **kw)
+            except BaseException as e:
+                failures.append(e)
+                # a node's processing loop holds the event loop while its
+                # queue has candidates: stopping every node lets the
+                # watcher run now instead of when the round ends
+                cluster.stop()
+                raise
+        return call
+
+    # set before the cluster exists: each node's CombineShim binds
+    # `device_combine` when its Handel is built
+    cons = scheme.constructor
+    cons.batch_verify = recorded(cons.batch_verify)
+    cons.device_combine = recorded(cons.device_combine)
+    cluster = LocalCluster(ROUND_NODES, scheme=scheme, msg=MSG)
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scheme.constructor.prepare(cluster.registry.public_keys())
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    prepare_s = time.perf_counter() - t0
+
+    h0 = cluster.handels[0]
+    (peer,) = h0.partitioner.identities_at(1)
+    one = BitSet(1)
+    one.set(0, True)
+    forged = Packet(origin=peer.id, level=1, multisig=MultiSignature(
+        one, BN254SecretKey(FORGER_SCALAR).sign(MSG)).marshal())
+
+    async def go():
+        async def watch():
+            while not failures:
+                await asyncio.sleep(0.25)
+
+        zero_counts(counters)
+        t_start = time.perf_counter()
+        cluster.start()
+        h0.new_packet(forged)
+        done = asyncio.ensure_future(cluster.wait_complete_success(timeout=ROUND_TIMEOUT_S))
+        watcher = asyncio.ensure_future(watch())
+        try:
+            await asyncio.wait([done, watcher], return_when=asyncio.FIRST_COMPLETED)
+            if failures:
+                raise AssertionError(
+                    f"a device launch failed in the round: {failures[0]!r}"
+                ) from failures[0]
+            return done.result(), time.perf_counter() - t_start
+        finally:
+            done.cancel()
+            watcher.cancel()
+            cluster.stop()
+            await asyncio.gather(done, watcher, return_exceptions=True)
+
+    results, wall_s = asyncio.run(go())
+    launches = {k: c.launches for k, c in counters.items()}
+    widths = width_histograms(counters)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+    t0 = time.perf_counter()
+    if sorted(results) != list(range(ROUND_NODES)):
+        raise AssertionError(f"final signatures from nodes {sorted(results)} only")
+    verified: dict[bytes, bool] = {}
+    for i, sig in results.items():
+        if sig.cardinality() < cluster.threshold:
+            raise AssertionError(f"node {i}: {sig.cardinality()} < threshold {cluster.threshold}")
+        wire = sig.marshal()
+        if wire not in verified:
+            verified[wire] = verify_multisignature(MSG, sig, cluster.registry, scheme.constructor)
+        if not verified[wire]:
+            raise AssertionError(f"node {i}'s final signature does not verify")
+    host_check_s = time.perf_counter() - t0
+    values = [h.values() for h in cluster.handels.values()]
+    total = lambda key: sum(v[key] for v in values)  # noqa: E731
+    hist = LogHistogram()
+    for h in cluster.handels.values():
+        hist.merge(h.proc.hist_verify)
+    fig = {
+        "nodes": ROUND_NODES, "lanes": LANES, "threshold": cluster.threshold,
+        "wall_s": wall_s, "keygen_s": keygen_s, "prepare_s": prepare_s,
+        "host_check_s": host_check_s,
+        "final_cardinalities": [results[i].cardinality() for i in sorted(results)],
+        "verify_launches": hist.count,
+        "verify_candidates": int(total("sigCheckedCt") - total("dedupHits")),
+        "verify_p50_s": hist.quantile(0.5), "verify_mean_s": hist.sum / max(1, hist.count),
+        "verify_min_s": hist.lo, "verify_max_s": hist.hi,
+        "combine_device_groups": int(total("combineDeviceGroups")),
+        "combine_host_groups": int(total("combineHostGroups")),
+        "combine_groups": int(total("combineGroups")),
+        "combine_points": int(total("combinePoints")),
+        "sig_verify_failed": int(total("sigVerifyFailed")),
+        "kernel_launches": launches, "widths": widths.get("fp_mont_mul", {}),
+        "max_memory_allocated": peak,
+    }
+    line("round", **fig)
+    if fig["sig_verify_failed"] < 1:
+        raise AssertionError("the forged candidate was never rejected by a device verdict")
+    if fig["combine_device_groups"] < 1:
+        raise AssertionError("no merge of the round reached the device combine")
+    if launches["fp_mont_mul"] == 0:
+        raise AssertionError("the round never launched B1")
+    for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
+        if launches[k] != 0:
+            raise AssertionError(f"the round launched {k} {launches[k]} times")
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -873,6 +1030,7 @@ def main() -> int:
             lambda c: rns_bound_ms(rcons.curves.F, c)),
     }
     lab = lab_phase(dev, counters)
+    rnd = round_phase(dev, counters)
 
     def entry(kname, source, replaces, launches, widths, fig, **extra):
         return {
@@ -890,7 +1048,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fp_mont_mul", "handel_tpu_torch/csrc/fp_mont.cu", "handel_tpu/ops/fp.py:577",
               cios["fp_mont_mul"], [*k16.values(), *k24.values()], k16["f12_mul"],
-              on_path_range_launch=on_path["fp_mont_mul"]),
+              on_path_range_launch=on_path["fp_mont_mul"],
+              on_round={"launches": rnd["kernel_launches"]["fp_mont_mul"],
+                        "widths": rnd["widths"]}),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],

@@ -1,5 +1,5 @@
-"""PyTorch + CUDA port of handel_tpu: BLS-over-BN254 batch verification on
-the CIOS and the RNS field backends.
+"""PyTorch + CUDA port of handel_tpu: the Handel protocol core and
+BLS-over-BN254 batch verification on the CIOS and the RNS field backends.
 
 The JAX package (`handel_tpu`) stays the reference. This package imports
 torch and numpy, never jax and nothing of `handel_tpu`; module names mirror
@@ -16,11 +16,17 @@ the reference so each counterpart is easy to find:
   ops/curve.py           G1/G2 complete projective formulas, sums, scans
   ops/pairing.py         batched optimal-ate pairing and pairing check
   models/bn254.py        host scheme: keys, sign, wire formats
-  models/bn254_torch.py  BN254Device (range and dense launch classes),
-                         BN254TorchConstructor, BN254TorchScheme
+  models/bn254_torch.py  BN254Device (range and dense launch classes, the
+                         batched G1 combine), BN254TorchConstructor,
+                         BN254TorchScheme
+  models/fake.py         the fake scheme, for fast protocol tests
   csrc/, kernels/        the hand-written CUDA sources and their nvcc build
-  core/                  bitset, scheme interfaces, validation counters
-                         (the parts of the reference's core/ the above use)
+  core/                  the protocol: Handel (handel.py), the signature
+                         store, the batched verify pipeline and its
+                         device-combine shim (processing.py), partitioner,
+                         packets, config, timeouts, peer scoring, bitset,
+                         scheme interfaces, and the in-process harness
+                         (test_harness.py: LocalCluster)
   utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
   utils/opcount.py       kernel-launching ops per verify launch, on the CPU
 

@@ -1,1 +1,1 @@
-"""Host pieces the port needs: bitset, scheme interfaces, validation counters."""
+"""The protocol plane: Handel, its store, pipeline, partitioner, packets and in-process harness."""

@@ -1,10 +1,11 @@
-"""Signature-scheme interfaces — the part of handel_tpu/core/crypto.py that
-the port's host scheme and device constructor need.
+"""Signature-scheme interfaces and the MultiSignature wire object — a copy
+of handel_tpu/core/crypto.py.
 
 Reference: crypto.go:14-137 — the `PublicKey`/`SecretKey`/`Signature`
-protocols and the `Constructor` factory whose `batch_verify` a device scheme
-overrides with one batched multi-pairing launch. `MultiSignature` and
-`verify_multisignature` are not copied: nothing in the port uses them yet.
+protocols, the `Constructor` factory whose `batch_verify` a device scheme
+overrides with one batched multi-pairing launch, `MultiSignature` (bitset
+plus aggregate signature) with its wire format (crypto.go:65-110), and
+`verify_multisignature` (crypto.go:120-137).
 """
 
 from __future__ import annotations
@@ -83,3 +84,56 @@ class Constructor:
                 continue
             out.append(self.aggregate_public_keys(pubkeys, bs).verify(msg, sig))
         return out
+
+
+class MultiSignature:
+    """A (bitset, aggregate signature) pair — the protocol's unit of gossip.
+
+    Wire format (crypto.go:65-110): the marshaled bitset (core/bitset.py)
+    followed by the fixed-size signature bytes.
+    """
+
+    __slots__ = ("bitset", "signature")
+
+    def __init__(self, bitset: BitSet, signature: Signature):
+        self.bitset = bitset
+        self.signature = signature
+
+    def cardinality(self) -> int:
+        return self.bitset.cardinality()
+
+    def marshal(self) -> bytes:
+        return self.bitset.marshal() + self.signature.marshal()
+
+    @classmethod
+    def unmarshal(cls, data: bytes, constructor: Constructor) -> "MultiSignature":
+        bs, used = BitSet.unmarshal(data)
+        sig_bytes = data[used:]
+        if len(sig_bytes) < constructor.signature_size():
+            raise ValueError("multisignature wire data truncated")
+        sig = constructor.unmarshal_signature(
+            sig_bytes[: constructor.signature_size()]
+        )
+        return cls(bs, sig)
+
+    def __repr__(self) -> str:
+        return f"MultiSignature(bits={self.bitset!r})"
+
+
+def verify_multisignature(
+    msg: bytes,
+    ms: MultiSignature,
+    registry: "Registry",  # noqa: F821 - core/identity.py imports this module
+    constructor: Constructor,
+) -> bool:
+    """Registry-wide final verification (crypto.go:120-137): aggregate the
+    public keys of every signer in `ms.bitset` over the full registry and
+    check the aggregate signature against `msg`, on the host."""
+    n = registry.size()
+    if len(ms.bitset) != n:
+        return False
+    if ms.bitset.cardinality() == 0:
+        return False
+    keys = [registry.identity(i).public_key for i in range(n)]
+    agg = constructor.aggregate_public_keys(keys, ms.bitset)
+    return agg.verify(msg, ms.signature)

@@ -1,7 +1,32 @@
-"""Host-side point-validation counters — the part of handel_tpu/core/report.py
-that the port's host scheme feeds (the G2 subgroup check on unmarshal)."""
+"""Reporter-plane pieces — the part of handel_tpu/core/report.py that the
+port uses: the warn-once log gate Handel reports as `logWarnCt`, and the
+host-side point-validation counters its host scheme feeds (the G2 subgroup
+check on unmarshal)."""
 
 from __future__ import annotations
+
+
+class WarnOnce:
+    """Warn-once log gate with a reporter-plane counter.
+
+    A flooder spamming malformed packets must not turn per-packet logging
+    into the attack, so repeat offenses per reason drop to debug; every
+    occurrence (warned or suppressed) counts toward `logWarnCt`."""
+
+    def __init__(self, logger):
+        self.log = logger
+        self.counts: dict[str, int] = {}
+
+    def warn(self, key: str, detail) -> None:
+        n = self.counts.get(key, 0) + 1
+        self.counts[key] = n
+        (self.log.warn if n == 1 else self.log.debug)(key, detail)
+
+    def total(self) -> int:
+        return sum(self.counts.values())
+
+    def values(self) -> dict[str, float]:
+        return {"logWarnCt": float(self.total())}
 
 
 class CurveCheckCounters:

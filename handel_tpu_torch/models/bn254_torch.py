@@ -17,14 +17,18 @@ aggregation and affine conversion through its per-mul products, the pairing
 check on residue planes (the resident form, on by default there) through
 kernel B2.
 
+`combine_batch` sums groups of G1 points — the aggregate-signature merges of
+a node's store — in one masked G1 tree sum and affine conversion a chunk,
+the device side of core/processing.py `CombineShim`.
+
 Keys, signatures and wire formats are the host objects of models/bn254.py.
 The host packer builds each launch in pinned staging buffers that rotate
 over `stage_sets` sets; a CUDA event per set fences a set against reuse
 while a launch that reads it may still be copying from it.
 
-Not in this slice (later work): the RLC batch check, meshes of several
-cards, batched signature combines, registry epoch staging, multi-message
-launches and the host failover breaker.
+Not ported yet (ROADMAP): the RLC batch check, meshes of several cards,
+registry epoch staging, multi-message launches and the host failover
+breaker.
 """
 
 from __future__ import annotations
@@ -207,6 +211,9 @@ class BN254Device:
         self.n = bank.n
         self._b2 = (T.f2_pack([self.ref.G2_GEN[0]]), T.f2_pack([self.ref.G2_GEN[1]]))
         self._h_cache: dict[bytes, tuple] = {}
+        # combine_batch's group-width classes (powers of two) that have run
+        # once: the port's stand-in for the reference's compiled kernels
+        self._combine_ready: set[int] = set()
         self.stage_sets = 2
         pin = self.device.type == "cuda"
         self._stage = [
@@ -353,18 +360,71 @@ class BN254Device:
         verdicts, k = handle
         return [bool(v) for v in verdicts[:k].cpu().tolist()]
 
+    # -- batched aggregate combine (the store's merge path) ---------------------
+
+    def combine_batch(self, groups, compiled_only: bool = False):
+        """Sum many groups of G1 points — aggregate-signature merges — in
+        one launch per batch_size chunk.
+
+        `groups` is a sequence of point sequences (affine scalar-oracle
+        tuples, None = infinity); returns one combined affine point (or
+        None for infinity) per group. Each chunk's group width is quantized
+        to a power of two k >= 2, its class. `compiled_only=True` (the
+        CombineShim path) declines with None entries, for the caller to
+        fold on the host, any chunk whose class has not run yet; `warmup`
+        runs the classes 2, 4 and 8, and any call with
+        `compiled_only=False` adds its class. A decline looks like an
+        infinity sum, which callers redo on the host the same way."""
+        out = []
+        for i in range(0, len(groups), self.batch_size):
+            out.extend(
+                self._combine_chunk(groups[i : i + self.batch_size], compiled_only)
+            )
+        return out
+
+    def _combine_chunk(self, groups, compiled_only: bool = False):
+        C = self.batch_size
+        kmax = max((len(g) for g in groups), default=1)
+        k = 2
+        while k < kmax:
+            k *= 2
+        if compiled_only and k not in self._combine_ready:
+            return [None] * len(groups)
+        # block-major grid: block i = element i of every group's sum
+        flat = [None] * (k * C)
+        mask = np.zeros((k, C), bool)
+        for j, g in enumerate(groups):
+            for i, p in enumerate(g):
+                flat[i * C + j] = p
+                mask[i, j] = p is not None
+        g1, F = self.curves.g1, self.curves.F
+        P = self.curves.pack_g1(flat)
+        x, y, inf = g1.to_affine(
+            g1.masked_sum(P, torch.from_numpy(mask.reshape(-1)).to(self.device), k)
+        )
+        self._combine_ready.add(k)
+        xs, ys = F.unpack(x), F.unpack(y)
+        infs = inf.cpu().tolist()
+        return [None if infs[j] else (xs[j], ys[j]) for j in range(len(groups))]
+
     def warmup(self) -> int:
         """Build and load the kernel library and the prefix table with one
-        range launch, so the first round pays neither. Returns the number
-        of launches issued."""
+        range launch, and run the combine classes k = 2, 4 and 8 (pairwise
+        merges through wide patch chains; the CombineShim path combines on
+        the device only in classes that have run), so the first round pays
+        for none of them. Returns the number of launches issued."""
         bs = BitSet(self.n)
         for i in range(min(self.n, 2)):
             bs.set(i, True)
         self.fetch(
             self.dispatch(b"bn254-device-warmup", [(bs, _WarmupSig(self.ref.G1_GEN))])
         )
+        launches = 1
+        for k in (2, 4, 8):
+            self.combine_batch([[self.ref.G1_GEN] * k])
+            launches += 1
         self.reset_host_counters()
-        return 1
+        return launches
 
     def reset_host_counters(self) -> None:
         self.host_pack_ms = 0.0
@@ -659,6 +719,17 @@ class BN254TorchConstructor(BN254Constructor):
 
     def batch_verify(self, msg, pubkeys, requests) -> list[bool]:
         return self._device_of(pubkeys).batch_verify(msg, requests)
+
+    def device_combine(self, groups):
+        """Batched aggregate combine for core/processing.py `CombineShim`:
+        sum each group of G1 signature points on the device, in the classes
+        that have run (`combine_batch(compiled_only=True)`; a None entry
+        asks the shim to fold that group on the host). Returns None until
+        the device exists: the shim must never force the registry upload.
+        A launch error raises: no host fold hides a failing device."""
+        if self._device is None:
+            return None
+        return self._device.combine_batch(groups, compiled_only=True)
 
 
 class BN254TorchScheme(BN254Scheme):

@@ -185,6 +185,41 @@ def test_verify_on_card(card):
     assert dev.batch_verify(b"m", dense) == [True, True, False]
 
 
+@pytest.mark.parametrize("backend", ["cios", "rns"])
+def test_combine_batch_on_card_equals_cpu(card, backend):
+    """BN254Device.combine_batch on the card equals the same call on the CPU
+    and the host fold, in the warmed classes 2, 4 and 8 and across chunks;
+    on the cios backend it launches B1."""
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.models.bn254 import BN254PublicKey
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+
+    rng = random.Random(17)
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, rng.randrange(1, 1 << 30))) for _ in range(4)]
+    pts = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(12)]
+    groups = [[rng.choice(pts + [None]) for _ in range(rng.randrange(1, 9))]
+              for _ in range(9)]
+    p = rng.choice(pts)
+    groups[2] = [p, bn.g1_neg(p)]  # sums to infinity
+    want = []
+    for g in groups:
+        acc = None
+        for q in g:
+            if q is not None:
+                acc = q if acc is None else bn.g1_add(acc, q)
+        want.append(acc)
+    on_cpu = BN254Device(pks, batch_size=4, device="cpu", fp_backend=backend)
+    on_card = BN254Device(pks, batch_size=4, device=card, fp_backend=backend)
+    before = mont_mul.launches
+    got = on_card.combine_batch(groups)
+    assert (mont_mul.launches > before) == (backend == "cios")
+    assert got == on_cpu.combine_batch(groups) == want
+    on_card.warmup()
+    for k in (2, 3, 4, 7, 8):
+        assert on_card.combine_batch([pts[:k]], compiled_only=True) == on_cpu.combine_batch(
+            [pts[:k]])
+
+
 def test_rns_verify_on_card(card):
     """The rns backend's range and dense launches on the card: B2 launched,
     B1 not."""
