@@ -63,7 +63,7 @@ Phases, one line each, any failure exits non-zero with no result line:
               the path's kernel's device ms against the sum of its bound
               over the launch's calls
   6. lab      the kernel lab (python -m handel_tpu_torch.scripts.fp_kernel_lab)
-              at batch 2^18 and 2^20, the outer-product lab
+              at its batch 2^18, the outer-product lab
               (...scripts.mxu_limb_lab) at 2^15 with the card's int8 ceiling,
               and the production field's marginal rate for cios and rns
               (python -m handel_tpu_torch.ops.fp): muls/s per candidate, each
@@ -72,7 +72,7 @@ Phases, one line each, any failure exits non-zero with no result line:
               are its wrapper counts less the calls captured into graphs plus
               the calls the graphs replayed.
   7. round    a Handel round through the port alone: the port's LocalCluster
-              of 8 nodes on BN254TorchScheme(batch_size=128) (cios), with a
+              of 6 nodes on BN254TorchScheme(batch_size=128) (cios), with a
               forged level-1 candidate (a one-bit multisignature signed by a
               key outside the registry) injected into node 0 before the wait.
               Every node's final signature must reach the threshold and
@@ -85,11 +85,36 @@ Phases, one line each, any failure exits non-zero with no result line:
               start() to the last final signature, the verify launches and
               candidates, the per-launch verify p50, the combine groups,
               B1's calls by column count and peak device memory.
+  8. service  the shared batch verifier (parallel/batch_verifier.py), every
+              service built with fallback=None:
+     load     one BatchVerifierService(max_inflight=2) over phase 4's
+              prepared cios engine (4096 keys, 128 lanes) takes four
+              sessions of 64 range candidates at once, forged lanes among
+              them: every verdict as known by construction, 2 or 3
+              launches, launch fill >= 0.6, B1 launched and B2, B3a, B3b
+              not. Printed: wall, candidates/s (verify throughput under
+              load), launches, fill, host pack and dispatch ms per launch,
+              the seconds in which a dispatch and a fetch were in flight
+              together, peak memory, B1's calls by column count.
+     round    a 128-node Handel round on BN254TorchScheme(batch_size=128),
+              cios, every node verifying through one service over the
+              prepared engine (Config.verifier = service.verify, with
+              InfiniteTimeout and random.Random(1 + i)), phase 7's forgery
+              into node 0: every final signature at the threshold and
+              verifying on the host oracle, sigVerifyFailed >= 1, device
+              combine groups >= 1, fewer launches than nodes, dedup hits
+              >= 1, B1 launched and B2, B3a, B3b not.
+     round_rns  the same round on fp_backend="rns": B2 launched, B3a, B3b
+              not, B1's count printed as it comes.
+              In every phase-8 run no failover, no retry, the breaker
+              closed at the end; an exception out of a lane's dispatch or
+              fetch or out of device_combine fails the run at once.
 
-Each path of phases 4, 6 and 7 is one main-path run: every kernel's launch
+Each path of phases 4, 6, 7 and 8 is one main-path run: every kernel's launch
 count is set to 0 just before it and read just after. Then one JSON line of
-kernel figures, the nvidia-smi line again, and last {"ok": true, "device":
-{...}}. Exits non-zero without a CUDA device.
+kernel figures, the seconds each phase took (`phases`), the total, the
+nvidia-smi line again, and last {"ok": true, "device": {...}}. Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -110,9 +135,18 @@ N_REGISTRY = 4096
 LANES = 128
 RANGE_CANDIDATES = 64
 DENSE_CANDIDATES = 126
-TIMED_LAUNCHES = 3
-ROUND_NODES = 8
+# launches timed per class after the main-path one, whose wall joins them
+TIMED_LAUNCHES = 1
+# the per-node round's committee: every node's launches queue on the one
+# event loop, so the fewest nodes whose store merges still reach the device
+# combine (groups of 4 points or more; none do at 4 nodes, see
+# tests/test_torch_protocol.py::test_per_node_round_sizes)
+ROUND_NODES = 6
 ROUND_TIMEOUT_S = 600.0
+# phase 8: sessions of RANGE_CANDIDATES range candidates at once, and the
+# committee of the round through one service
+SERVICE_SESSIONS = 4
+SERVICE_ROUND_NODES = 128
 # a secret key outside the round's registry (its keys come from
 # new_keypair(seed=i), SHA-256 derived): the forger of phase 7
 FORGER_SCALAR = 0x5EED_F0E6
@@ -556,7 +590,7 @@ def lab_kernel_phase(F, widths: dict[str, int], rng) -> dict:
 
 def lab_phase(dev, counters) -> dict:
     """The lab entry points as one main-path run: every kernel count set to
-    0 just before, read just after. fp_kernel_lab at batch 2^18 and 2^20,
+    0 just before, read just after. fp_kernel_lab at its batch 2^18,
     mxu_limb_lab at its batch 2^15, and the production field's marginal
     rate for cios and rns at 2^20. A failed validation or agreement gate
     exits there (SystemExit) and fails the run. Returns the figures."""
@@ -565,8 +599,8 @@ def lab_phase(dev, counters) -> dict:
 
     zero_counts(counters)
     t0 = time.perf_counter()
-    labs = {f"fp_kernel_lab/{batch}": fp_kernel_lab.main([str(batch)])
-            for batch in (1 << 18, 1 << 20)}
+    batch = 1 << 18
+    labs = {f"fp_kernel_lab/{batch}": fp_kernel_lab.main([str(batch)])}
     labs["mxu_limb_lab"] = mxu_limb_lab.main([])
     rates = {backend: _throughput_bench(1 << 20, backend=backend, device=dev)[0]
              for backend in ("cios", "rns")}
@@ -690,14 +724,17 @@ def profile_phase(cons, pks, requests, kernel: str, label: str, counter, bound) 
         cons.batch_verify(MSG, pks, requests)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the profiler's raw records (name, device ms): its parsed event list
+    # costs about 95 s of host time for the two paths' 700,000 records
+    acts = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
     if not acts:
         raise AssertionError("torch.profiler recorded no device activity")
     by_name: dict[str, list] = {}
-    for e in acts:
-        entry = by_name.setdefault(e.name, [0, 0.0])
+    for name, ms in acts:
+        entry = by_name.setdefault(name, [0, 0.0])
         entry[0] += 1
-        entry[1] += e.time_range.elapsed_us() / 1e3
+        entry[1] += ms
     busy_ms = sum(ms for _, ms in by_name.values())
     ours = [v for k, v in by_name.items() if kernel in k]
     if not ours:
@@ -736,7 +773,8 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
     """One main-path run of a verify path: prepare (registry commit, warmup
     and prefix table), then every kernel count set to 0, the range and dense
     launches with their verdicts checked, the counts read; then the timed
-    launches. Returns {kernel: launches in the main-path run}."""
+    launches, whose walls join the main-path launch's. Returns {kernel:
+    launches in the main-path run}."""
     import torch
 
     dev = cons.curves.device
@@ -754,10 +792,12 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
     zero_counts(counters)
     if conv_field is not None:
         conv_field.reset_conversion_counts()
-    per_class = {}
+    per_class, walls = {}, {}
     for kind, (requests, expect) in reqs.items():
         before = {k: c.launches for k, c in counters.items()}
+        t0 = time.perf_counter()
         got = cons.batch_verify(MSG, pks, requests)
+        walls[kind] = [(time.perf_counter() - t0) * 1e3]
         per_class[kind] = {k: c.launches - before[k] for k, c in counters.items()}
         if got != expect:
             bad = [j for j, (g, e) in enumerate(zip(got, expect)) if g != e]
@@ -772,14 +812,13 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
             raise AssertionError(f"the {label} path launched {k} {launches[k]} times")
     peak = torch.cuda.max_memory_allocated(dev)
     for kind, (requests, _expect) in reqs.items():
-        walls = []
         for _ in range(TIMED_LAUNCHES):
             t0 = time.perf_counter()
             cons.batch_verify(MSG, pks, requests)
-            walls.append((time.perf_counter() - t0) * 1e3)
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
         line("verify", path=label, launch_class=kind, lanes=LANES,
              candidates=len(requests), registry=N_REGISTRY, verdicts_ok=True,
-             p50_ms=statistics.median(walls), wall_ms=walls,
+             p50_ms=statistics.median(walls[kind]), wall_ms=walls[kind],
              launches_per_verify=per_class[kind])
     line("memory", path=label, max_memory_allocated=peak, launches=launches,
          conversion_counts=conv)
@@ -925,6 +964,301 @@ def round_phase(dev, counters) -> dict:
     return fig
 
 
+
+class LaneCalls:
+    """Wraps an engine's `dispatch` and `fetch` (which a service calls on
+    worker threads) to record each call's start and end, and the first
+    exception either raises; `on_error` then runs on the event loop.
+    `restore()` puts the engine's own methods back."""
+
+    def __init__(self, engine, on_error=None):
+        import threading
+
+        self.engine, self.on_error = engine, on_error
+        self.spans: dict[str, list[tuple[float, float]]] = {"dispatch": [], "fetch": []}
+        self.failures: list[BaseException] = []
+        self.loop = None
+        self._lock = threading.Lock()
+        for name in self.spans:
+            setattr(engine, name, self._wrap(name, getattr(engine, name)))
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            except BaseException as e:
+                with self._lock:
+                    self.failures.append(e)
+                if self.on_error is not None and self.loop is not None:
+                    self.loop.call_soon_threadsafe(self.on_error)
+                raise
+            finally:
+                with self._lock:
+                    self.spans[name].append((t0, time.perf_counter()))
+        return call
+
+    def restore(self) -> None:
+        for name in self.spans:
+            delattr(self.engine, name)
+
+    def overlap_s(self) -> float:
+        """Seconds in which a dispatch and a fetch were in flight together."""
+        def union(spans):
+            out = []
+            for a, b in sorted(spans):
+                if out and a <= out[-1][1]:
+                    out[-1][1] = max(out[-1][1], b)
+                else:
+                    out.append([a, b])
+            return out
+
+        d, f = union(self.spans["dispatch"]), union(self.spans["fetch"])
+        return sum(max(0.0, min(b1, b2) - max(a1, a2)) for a1, b1 in d for a2, b2 in f)
+
+
+def service_checks(label: str, values: dict) -> None:
+    """No failover, no retry, the breaker closed: nothing hid the device."""
+    for key in ("failoverBatches", "failoverCandidates", "deviceRetryCt"):
+        if values[key] != 0:
+            raise AssertionError(f"{label}: {key} = {values[key]}")
+    if values["breakerState"] != 0.0:
+        raise AssertionError(f"{label}: breaker not closed ({values['breakerState']})")
+
+
+def service_load_phase(cons, pks, sks, counters, prng) -> dict:
+    """Phase 8a: SERVICE_SESSIONS sessions of range candidates at once
+    through one service over the prepared engine of `cons`, as one
+    main-path run. Raises on any failed check; returns the figures."""
+    import asyncio
+
+    import torch
+
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+
+    engine = cons._device
+    dev = engine.device
+    batches = [make_requests("range", sks, RANGE_CANDIDATES, prng) for _ in range(SERVICE_SESSIONS)]
+    calls = LaneCalls(engine)
+    svc = BatchVerifierService(engine, fallback=None, max_inflight=2)
+    engine.reset_host_counters()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    async def go():
+        calls.loop = asyncio.get_running_loop()
+        try:
+            return await asyncio.gather(*(
+                svc.verify(MSG, pks, reqs, session=f"s{i}") for i, (reqs, _) in enumerate(batches)
+            ))
+        finally:
+            svc.stop()
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        got = asyncio.run(go())
+    finally:
+        calls.restore()
+    wall_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    widths = width_histograms(counters)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    values = svc.values()
+    candidates = sum(len(reqs) for reqs, _ in batches)
+    fig = {
+        "sessions": SERVICE_SESSIONS, "candidates": candidates, "lanes": LANES,
+        "registry": len(pks), "wall_s": wall_s, "candidates_per_s": candidates / wall_s,
+        "launches": values["verifierLaunches"], "launch_fill": values["launchFillRatio"],
+        "host_pack_ms_per_launch": values["hostPackMsPerLaunch"],
+        "host_dispatch_ms_per_launch": values["hostDispatchMsPerLaunch"],
+        "dispatch_s": [b - a for a, b in calls.spans["dispatch"]],
+        "fetch_s": [b - a for a, b in calls.spans["fetch"]],
+        "dispatch_fetch_overlap_s": calls.overlap_s(),
+        "kernel_launches": launches, "widths": widths, "max_memory_allocated": peak,
+    }
+    line("service", run="load", **fig)
+    for i, (verdicts, (_reqs, expect)) in enumerate(zip(got, batches)):
+        if verdicts != expect:
+            bad = [j for j, (g, e) in enumerate(zip(verdicts, expect)) if g != e]
+            raise AssertionError(f"service load: session s{i} verdicts wrong at lanes {bad}")
+    if values["verifierLaunches"] not in (2.0, 3.0):
+        raise AssertionError(f"service load: {values['verifierLaunches']} launches, not 2 or 3")
+    if values["launchFillRatio"] < 0.6:
+        raise AssertionError(f"service load: launch fill {values['launchFillRatio']} < 0.6")
+    service_checks("service load", values)
+    if launches["fp_mont_mul"] == 0:
+        raise AssertionError("the service load never launched B1")
+    for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
+        if launches[k] != 0:
+            raise AssertionError(f"the service load launched {k} {launches[k]} times")
+    return fig
+
+
+def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launch: str,
+                        expect_idle) -> dict:
+    """Phase 8b: a Handel round of SERVICE_ROUND_NODES nodes through the
+    port's harness, every node verifying through one service over the
+    constructor's prepared engine, as one main-path run. Raises on any failed check;
+    returns the round's figures."""
+    import asyncio
+
+    import torch
+
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.core.config import Config
+    from handel_tpu_torch.core.crypto import MultiSignature, verify_multisignature
+    from handel_tpu_torch.core.net import Packet
+    from handel_tpu_torch.core.test_harness import LocalCluster
+    from handel_tpu_torch.core.timeout import InfiniteTimeout
+    from handel_tpu_torch.core.trace import LogHistogram
+    from handel_tpu_torch.models.bn254 import BN254SecretKey
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+
+    t0 = time.perf_counter()
+    scheme = BN254TorchScheme(batch_size=LANES, device=dev, fp_backend=fp_backend)
+    cons = scheme.constructor
+    failures: list[BaseException] = []
+    svc = None
+
+    def combine_recorded(fn):
+        def call(*args, **kw):
+            try:
+                return fn(*args, **kw)
+            except BaseException as e:
+                failures.append(e)
+                cluster.stop()  # the event loop's own thread: stop at once
+                raise
+        return call
+
+    async def verify(msg, pubkeys, requests):
+        return await svc.verify(msg, pubkeys, requests)
+
+    def factory(i):
+        c = Config()
+        c.verifier = verify
+        c.new_timeout = InfiniteTimeout  # what the harness sets without a factory
+        c.rand = random.Random(1 + i)
+        return c
+
+    # set before the cluster exists: each node's CombineShim binds
+    # `device_combine` when its Handel is built
+    cons.device_combine = combine_recorded(cons.device_combine)
+    cluster = LocalCluster(SERVICE_ROUND_NODES, scheme=scheme, msg=MSG, config_factory=factory)
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = cons.prepare(cluster.registry.public_keys())  # warmup, then a device synchronize
+    prepare_s = time.perf_counter() - t0
+    calls = LaneCalls(engine, on_error=cluster.stop)
+    svc = cluster.verifier_service = BatchVerifierService(engine, fallback=None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    h0 = cluster.handels[0]
+    (peer,) = h0.partitioner.identities_at(1)
+    one = BitSet(1)
+    one.set(0, True)
+    forged = Packet(origin=peer.id, level=1, multisig=MultiSignature(
+        one, BN254SecretKey(FORGER_SCALAR).sign(MSG)).marshal())
+
+    async def go():
+        calls.loop = asyncio.get_running_loop()
+
+        async def watch():
+            while not (failures or calls.failures):
+                await asyncio.sleep(0.25)
+
+        zero_counts(counters)
+        t_start = time.perf_counter()
+        cluster.start()
+        h0.new_packet(forged)
+        done = asyncio.ensure_future(cluster.wait_complete_success(timeout=ROUND_TIMEOUT_S))
+        watcher = asyncio.ensure_future(watch())
+        try:
+            await asyncio.wait([done, watcher], return_when=asyncio.FIRST_COMPLETED)
+            first = (failures or calls.failures or [None])[0]
+            if first is not None:
+                raise AssertionError(
+                    f"a device call failed in the {label} round: {first!r}") from first
+            return done.result(), time.perf_counter() - t_start
+        finally:
+            done.cancel()
+            watcher.cancel()
+            cluster.stop()
+            svc.stop()
+            await asyncio.gather(done, watcher, return_exceptions=True)
+
+    try:
+        results, wall_s = asyncio.run(go())
+    finally:
+        calls.restore()
+    launches = {k: c.launches for k, c in counters.items()}
+    widths = width_histograms(counters)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    values = svc.values()
+
+    t0 = time.perf_counter()
+    if sorted(results) != list(range(SERVICE_ROUND_NODES)):
+        raise AssertionError(f"{label}: final signatures from {len(results)} nodes only")
+    verified: dict[bytes, bool] = {}
+    for i, sig in results.items():
+        if sig.cardinality() < cluster.threshold:
+            raise AssertionError(
+                f"{label}: node {i}: {sig.cardinality()} < threshold {cluster.threshold}")
+        wire = sig.marshal()
+        if wire not in verified:
+            verified[wire] = verify_multisignature(MSG, sig, cluster.registry, cons)
+        if not verified[wire]:
+            raise AssertionError(f"{label}: node {i}'s final signature does not verify")
+    host_check_s = time.perf_counter() - t0
+    node_values = [h.values() for h in cluster.handels.values()]
+    total = lambda key: sum(v[key] for v in node_values)  # noqa: E731
+    hist = LogHistogram()
+    for h in cluster.handels.values():
+        hist.merge(h.proc.hist_verify)
+    fig = {
+        "backend": fp_backend, "nodes": SERVICE_ROUND_NODES, "lanes": LANES,
+        "threshold": cluster.threshold,
+        "wall_s": wall_s, "keygen_s": keygen_s, "prepare_s": prepare_s,
+        "host_check_s": host_check_s, "distinct_finals": len(verified),
+        "min_final_cardinality": min(s.cardinality() for s in results.values()),
+        "launches": values["verifierLaunches"], "candidates": values["verifierCandidates"],
+        "launch_fill": values["launchFillRatio"], "dedup_hits": values["dedupHits"],
+        "dedup_hit_rate": values["dedupHitRate"],
+        "node_verify_calls": hist.count, "node_verify_p50_s": hist.quantile(0.5),
+        "node_verify_mean_s": hist.sum / max(1, hist.count),
+        "node_verify_max_s": hist.hi,
+        "host_pack_ms_per_launch": values["hostPackMsPerLaunch"],
+        "host_dispatch_ms_per_launch": values["hostDispatchMsPerLaunch"],
+        "dispatch_s": [b - a for a, b in calls.spans["dispatch"]],
+        "dispatch_fetch_overlap_s": calls.overlap_s(),
+        "combine_device_groups": int(total("combineDeviceGroups")),
+        "combine_host_groups": int(total("combineHostGroups")),
+        "sig_verify_failed": int(total("sigVerifyFailed")),
+        "kernel_launches": launches, "widths": widths, "max_memory_allocated": peak,
+    }
+    line("service", run=label, **fig)
+    if fig["sig_verify_failed"] < 1:
+        raise AssertionError(
+            f"{label}: the forged candidate was never rejected by a device verdict")
+    if fig["combine_device_groups"] < 1:
+        raise AssertionError(f"{label}: no merge of the round reached the device combine")
+    if not 0 < values["verifierLaunches"] < SERVICE_ROUND_NODES:
+        raise AssertionError(
+            f"{label}: {values['verifierLaunches']} launches for {SERVICE_ROUND_NODES} nodes")
+    if values["dedupHits"] < 1:
+        raise AssertionError(f"{label}: the service deduplicated nothing")
+    service_checks(label, values)
+    if launches[expect_launch] == 0:
+        raise AssertionError(f"the {label} run never launched {expect_launch}")
+    for k in expect_idle:
+        if launches[k] != 0:
+            raise AssertionError(f"the {label} run launched {k} {launches[k]} times")
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -943,10 +1277,20 @@ def main() -> int:
     from handel_tpu_torch.ops.fp import Field
 
     t_start = time.perf_counter()
+    phase_s: dict[str, float] = {}
+    last = [t_start]
+
+    def done(phase: str) -> None:
+        """Seconds since the previous phase ended, under `phase`."""
+        now = time.perf_counter()
+        phase_s[phase] = now - last[0]
+        last[0] = now
+
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     line("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
+    done("device")
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -976,6 +1320,7 @@ def main() -> int:
         for fn, (_regs, st, ld, _smem) in ptxas[src].items():
             if st or ld:
                 raise AssertionError(f"{fn} spills ({st} bytes stored, {ld} loaded)")
+    done("build")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -988,22 +1333,27 @@ def main() -> int:
     R46 = Field(bn.P, backend="rns", device=dev)
     R65 = Field(BLS12_381_P, backend="rns", device=dev)
     ragged_phase((F16, F24), (R46, R65), rng)
+    done("ragged")
     k16 = kernel_phase(
         F16, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width, "g2_add_dense": widest},
         rng, with_edges=True,
     )
     k24 = kernel_phase(F24, {"random+edges": (1 << 20) + 16}, rng, with_edges=True)
+    done("kernel")
     r46 = rns_kernel_phase(R46, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width}, rng)
     r65 = rns_kernel_phase(R65, {"random+edges": (1 << 20) + 16}, rng)
+    done("rns_kernel")
     b3 = lab_kernel_phase(
         F16, {"random+edges": (1 << 20) + 16, "lab_batch": 1 << 18, "f12_mul": f12_width}, rng
     )
     b3_24 = lab_kernel_phase(F24, {"random+edges": (1 << 20) + 16}, rng)
     for kname in b3:
         b3[kname].update(b3_24[kname])
+    done("lab_kernel")
 
     pairing_phase(dev, "cios")
     pairing_phase(dev, "rns")
+    done("pairing")
 
     prng = random.Random(SEED)
     t0 = time.perf_counter()
@@ -1013,15 +1363,18 @@ def main() -> int:
         "dense": make_requests("dense", sks, DENSE_CANDIDATES, prng),
     }
     line("setup", registry=N_REGISTRY, host_keygen_s=time.perf_counter() - t0)
+    done("setup")
     counters = {"fp_mont_mul": mont_mul, "rns_mont_mul_resident": rns_mul_resident,
                 "lab_cios_fullwidth": lab_cios_fullwidth, "lab_separated": lab_separated}
     cons = BN254TorchScheme(batch_size=LANES, device=dev).constructor
     cios = verify_path("cios", cons, pks, reqs, counters, "fp_mont_mul",
                        ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"))
+    done("verify")
     rcons = BN254TorchScheme(batch_size=LANES, device=dev, fp_backend="rns").constructor
     rns = verify_path("rns", rcons, pks, reqs, counters, "rns_mont_mul_resident",
                       ("fp_mont_mul", "lab_cios_fullwidth", "lab_separated"),
                       conv_field=rcons.curves.F)
+    done("rns_verify")
     on_path = {
         "fp_mont_mul": profile_phase(cons, pks, reqs["range"][0], "mont_mul_kernel", "cios",
                                      mont_mul, lambda c: mont_mul_bound_ms(16, c)),
@@ -1029,8 +1382,24 @@ def main() -> int:
             rcons, pks, reqs["range"][0], "rns_mul_resident_kernel", "rns", rns_mul_resident,
             lambda c: rns_bound_ms(rcons.curves.F, c)),
     }
+    done("profile")
     lab = lab_phase(dev, counters)
+    done("lab")
     rnd = round_phase(dev, counters)
+    done("round")
+    load = service_load_phase(cons, pks, sks, counters, prng)
+    done("service_load")
+    srnd = service_round_phase(dev, counters, "cios", "round", "fp_mont_mul",
+                               ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"))
+    done("service_round")
+    srnd_rns = service_round_phase(dev, counters, "rns", "round_rns", "rns_mont_mul_resident",
+                                   ("lab_cios_fullwidth", "lab_separated"))
+    done("service_round_rns")
+    on_service = {
+        key: {"launches": f["kernel_launches"]["fp_mont_mul"],
+              "widths": f["widths"].get("fp_mont_mul", {})}
+        for key, f in (("load", load), ("round", srnd), ("round_rns", srnd_rns))
+    }
 
     def entry(kname, source, replaces, launches, widths, fig, **extra):
         return {
@@ -1050,16 +1419,21 @@ def main() -> int:
               cios["fp_mont_mul"], [*k16.values(), *k24.values()], k16["f12_mul"],
               on_path_range_launch=on_path["fp_mont_mul"],
               on_round={"launches": rnd["kernel_launches"]["fp_mont_mul"],
-                        "widths": rnd["widths"]}),
+                        "widths": rnd["widths"]},
+              on_service=on_service),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],
-              on_path_range_launch=on_path["rns_mont_mul_resident"]),
+              on_path_range_launch=on_path["rns_mont_mul_resident"],
+              on_service={"round_rns": {
+                  "launches": srnd_rns["kernel_launches"]["rns_mont_mul_resident"],
+                  "widths": srnd_rns["widths"].get("rns_mont_mul_resident", {})}}),
         *(entry(kname, "handel_tpu_torch/csrc/lab_mont.cu", "scripts/fp_kernel_lab.py:234",
                 lab["executed"][kname], list(b3[kname].values()), b3[kname]["random+edges/16"],
                 captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])
           for kname in ("lab_cios_fullwidth", "lab_separated")),
     ]}))
+    line("phases", seconds=phase_s)
     line("total", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of handel_tpu: the Handel protocol core and
-BLS-over-BN254 batch verification on the CIOS and the RNS field backends.
+"""PyTorch + CUDA port of handel_tpu: the Handel protocol core, the shared
+batch verifier, and BLS-over-BN254 batch verification on the CIOS and the
+RNS field backends.
 
 The JAX package (`handel_tpu`) stays the reference. This package imports
 torch and numpy, never jax and nothing of `handel_tpu`; module names mirror
@@ -20,6 +21,11 @@ the reference so each counterpart is easy to find:
                          batched G1 combine), BN254TorchConstructor,
                          BN254TorchScheme
   models/fake.py         the fake scheme, for fast protocol tests
+  parallel/              the shared batch verifier (batch_verifier.py:
+                         BatchVerifierService) over a device plane
+                         (plane.py), with its mode policy (mesh_plane.py)
+  service/               the tenant queue (fairness.py) and the host-math
+                         device engine (driver.py: HostDevice)
   csrc/, kernels/        the hand-written CUDA sources and their nvcc build
   core/                  the protocol: Handel (handel.py), the signature
                          store, the batched verify pipeline and its
@@ -28,7 +34,9 @@ the reference so each counterpart is easy to find:
                          scheme interfaces, and the in-process harness
                          (test_harness.py: LocalCluster)
   utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
-  utils/opcount.py       kernel-launching ops per verify launch, on the CPU
+  utils/breaker.py       the circuit breaker of the service's device lanes
+  utils/opcount.py       kernel-launching ops per verify launch and per
+                         combine, on the CPU
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

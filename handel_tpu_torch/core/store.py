@@ -41,7 +41,9 @@ class VerifiedAggCache:
     cached too: a known-bad aggregate re-sent by a byzantine peer costs
     nothing after the first pairing check.
 
-    Used per-node by `BatchProcessing` (core/processing.py).
+    Used per-node by `BatchProcessing` (core/processing.py) and, keyed by
+    message instead of level, process-wide by `BatchVerifierService`
+    (parallel/batch_verifier.py) where co-located nodes dedup each other.
     Bounded so a flood of distinct aggregates cannot grow host memory
     unboundedly; LRU because Handel traffic is bursty per level — the
     current level's winners stay hot, finished levels age out.
@@ -74,6 +76,23 @@ class VerifiedAggCache:
         content digest of the exact bitset words and signature bytes."""
         return (scope, VerifiedAggCache.content_digest(ms.bitset, ms.signature))
 
+    def drop_scope(self, scope) -> int:
+        """Forget every verdict whose key LEADS with `scope` — either as
+        the key's first element or as the first element of a tuple scope.
+        The multi-tenant eviction hook (parallel/batch_verifier.py
+        `forget_session`): a retired session's verdicts must not keep
+        occupying LRU capacity the live tenants could use. O(cache size) —
+        evictions are rare next to lookups. Returns the number of entries
+        dropped."""
+        dead = [
+            k
+            for k in self._map
+            if k[0] == scope
+            or (isinstance(k[0], tuple) and k[0] and k[0][0] == scope)
+        ]
+        for k in dead:
+            del self._map[k]
+        return len(dead)
 
     def get(self, key: tuple) -> bool | None:
         """Remembered verdict for `key`, or None; counts the hit/miss."""
@@ -103,6 +122,11 @@ class VerifiedAggCache:
             "dedupHitRate": self.hits / total if total else 0.0,
             "dedupSize": float(len(self._map)),
         }
+
+    def gauge_keys(self) -> set[str]:
+        """Point-in-time keys, declared explicitly so a metrics plane never
+        deltas them."""
+        return {"dedupHitRate", "dedupSize"}
 
 
 class SignatureStore:

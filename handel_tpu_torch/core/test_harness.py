@@ -9,9 +9,16 @@ barrier (`WaitCompleteSuccess`).
 The "network" routes packets between nodes sharing one asyncio event loop;
 every packet is encoded and decoded on the way, so the wire path runs. With
 `BN254TorchScheme` the cluster drives the port's device engine: each node's
-verify launches and merges reach the card. The JAX package's chaos, geo,
-adversary, metrics, shared-verifier and packet-loss options are not ported
-yet (ROADMAP).
+verify launches and merges reach the card.
+
+Shared verifier: nodes reach one `BatchVerifierService`
+(parallel/batch_verifier.py) through `config_factory`, with
+`cfg.verifier = service.verify`; `verifier_service=` holds the service on
+the cluster, where the reference's metrics read it. A factory replaces the
+harness's defaults, so it sets `new_timeout = InfiniteTimeout` and
+`rand = random.Random(seed + i)` itself when the round should keep the
+shape of a default one. The JAX package's chaos, geo, adversary, metrics,
+recorder and packet-loss options are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ class LocalCluster:
         msg: bytes = b"hello world",
         config_factory: Callable[[int], Config] | None = None,
         seed: int = 1,
+        verifier_service=None,
     ):
         self.n = n
         self.scheme = scheme or FakeScheme()
@@ -108,6 +116,7 @@ class LocalCluster:
                 net, self.registry, idents[i], cons, self.msg, own_sig, cfg
             )
         self.threshold = next(iter(self.handels.values())).threshold
+        self.verifier_service = verifier_service
 
     def start(self) -> None:
         for h in self.handels.values():

@@ -16,6 +16,7 @@ instance; `mont_mul.tpi`, when set, forces one (for timing each).
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 
 import torch
@@ -49,29 +50,40 @@ class MontMulKernel:
         self.widths: Counter[int] = Counter()
         self.tpi: int | None = None
         self._fn = None
+        # launches come from several threads (a service's worker thread
+        # verifies while the event loop combines): the library load and
+        # each count happen under the lock
+        self._lock = threading.Lock()
 
     def reset(self) -> None:
         """Zero the launch count and the width histogram."""
-        self.launches = 0
-        self.widths.clear()
+        with self._lock:
+            self.launches = 0
+            self.widths.clear()
+
+    def _count(self, cols: int) -> None:
+        with self._lock:
+            self.launches += 1
+            self.widths[cols] += 1
 
     def _entry(self):
-        if self._fn is None:
-            from handel_tpu_torch.kernels.build import load_library
+        with self._lock:
+            if self._fn is None:
+                from handel_tpu_torch.kernels.build import load_library
 
-            fn = load_library("fp_mont").handel_mont_mul
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64,  # a, lda
-                ctypes.c_void_p, ctypes.c_int64,  # b, ldb
-                ctypes.c_void_p, ctypes.c_int64,  # out, ldo
-                ctypes.c_int64, ctypes.c_int,  # cols, nlimbs16
-                ctypes.c_void_p, ctypes.c_uint32,  # p_words, n0
-                ctypes.c_int,  # lanes per column
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+                fn = load_library("fp_mont").handel_mont_mul
+                fn.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int64,  # a, lda
+                    ctypes.c_void_p, ctypes.c_int64,  # b, ldb
+                    ctypes.c_void_p, ctypes.c_int64,  # out, ldo
+                    ctypes.c_int64, ctypes.c_int,  # cols, nlimbs16
+                    ctypes.c_void_p, ctypes.c_uint32,  # p_words, n0
+                    ctypes.c_int,  # lanes per column
+                    ctypes.c_void_p,  # stream
+                ]
+                fn.restype = ctypes.c_int
+                self._fn = fn
+            return self._fn
 
     @staticmethod
     def _check(name, x, n, dev):
@@ -116,8 +128,7 @@ class MontMulKernel:
             )
         if rc != 0:
             raise RuntimeError(f"mont_mul launch failed: cudaError {rc}")
-        self.launches += 1
-        self.widths[cols] += 1
+        self._count(cols)
         return out
 
 

@@ -19,6 +19,7 @@ when set, forces one instance (for timing each).
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 
 import numpy as np
@@ -112,30 +113,41 @@ class RnsMulResidentKernel:
         self.widths: Counter[int] = Counter()
         self.tile: int | None = None
         self._fn = None
+        # launches come from several threads (a service's worker thread
+        # verifies while the event loop combines): the library load and
+        # each count happen under the lock
+        self._lock = threading.Lock()
 
     def reset(self) -> None:
         """Zero the launch count and the width histogram."""
-        self.launches = 0
-        self.widths.clear()
+        with self._lock:
+            self.launches = 0
+            self.widths.clear()
+
+    def _count(self, cols: int) -> None:
+        with self._lock:
+            self.launches += 1
+            self.widths[cols] += 1
 
     def _entry(self):
-        if self._fn is None:
-            from handel_tpu_torch.kernels.build import load_library
+        with self._lock:
+            if self._fn is None:
+                from handel_tpu_torch.kernels.build import load_library
 
-            fn = load_library("rns_mont").handel_rns_mul_resident
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64,  # a, lda
-                ctypes.c_void_p, ctypes.c_int64,  # b, ldb
-                ctypes.c_void_p, ctypes.c_int64,  # out, ldo
-                ctypes.c_int64,  # cols
-                ctypes.c_int, ctypes.c_int,  # kA, kB
-                ctypes.c_void_p,  # constant table
-                ctypes.c_int,  # columns per tile
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+                fn = load_library("rns_mont").handel_rns_mul_resident
+                fn.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int64,  # a, lda
+                    ctypes.c_void_p, ctypes.c_int64,  # b, ldb
+                    ctypes.c_void_p, ctypes.c_int64,  # out, ldo
+                    ctypes.c_int64,  # cols
+                    ctypes.c_int, ctypes.c_int,  # kA, kB
+                    ctypes.c_void_p,  # constant table
+                    ctypes.c_int,  # columns per tile
+                    ctypes.c_void_p,  # stream
+                ]
+                fn.restype = ctypes.c_int
+                self._fn = fn
+            return self._fn
 
     @staticmethod
     def _check(name, x, k, dev):
@@ -187,8 +199,7 @@ class RnsMulResidentKernel:
             )
         if rc != 0:
             raise RuntimeError(f"rns_mul_resident launch failed: cudaError {rc}")
-        self.launches += 1
-        self.widths[cols] += 1
+        self._count(cols)
         return out
 
 

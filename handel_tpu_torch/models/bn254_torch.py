@@ -19,12 +19,37 @@ kernel B2.
 
 `combine_batch` sums groups of G1 points — the aggregate-signature merges of
 a node's store — in one masked G1 tree sum and affine conversion a chunk,
-the device side of core/processing.py `CombineShim`.
+the device side of core/processing.py `CombineShim`. It runs on the cios
+field (kernel B1) whatever the verify backend: its points arrive and leave
+as host affine points, so its field is free, and a combine through the rns
+backend's per-mul product issues 37x the ops of a cios one (95,531 against
+2,571 at 128 lanes, counted on the CPU with each kernel call as one op),
+which a round's thousand-odd merges on the event loop cannot afford.
 
 Keys, signatures and wire formats are the host objects of models/bn254.py.
 The host packer builds each launch in pinned staging buffers that rotate
 over `stage_sets` sets; a CUDA event per set fences a set against reuse
 while a launch that reads it may still be copying from it.
+
+Threads. The shared batch verifier (parallel/batch_verifier.py) calls
+`dispatch` and `fetch` from worker threads, and the dispatch of launch n+1
+may run while the fetch of launch n waits; meanwhile the nodes' merges call
+`combine_batch` on the event-loop thread. So on the card:
+
+  * verify and combine run on two streams of their own. A launch's work,
+    its verdicts' copy to pinned host memory and its completion event are
+    all on the verify stream; `fetch` waits on that event and touches no
+    stream. A combine's synchronizing copies wait for the combine stream
+    only, never for a verify launch in flight.
+  * one lock serializes dispatches: the staging rotation, the fence and
+    the per-message H(m) cache belong to one dispatch at a time.
+  * first-use state (the kernel library, the field's cached device
+    constants, the prefix table, the combine classes, H(m) of the warmup
+    message) is built by `warmup`, which ends with a device synchronize: a
+    service over the engine starts after it (`BN254TorchConstructor.prepare`
+    runs it), so no two threads race to build that state, and the registry
+    bank (written by blocking copies) and the prefix table are only read
+    from then on.
 
 Not ported yet (ROADMAP): the RLC batch check, meshes of several cards,
 registry epoch staging, multi-message launches and the host failover
@@ -33,6 +58,7 @@ breaker.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import namedtuple
 from typing import Sequence
@@ -83,11 +109,12 @@ class _StagingSet:
     """One set of host staging buffers for the launch packer.
 
     Each buffer is a torch tensor (pinned when the engine runs on the card)
-    with a numpy view that the packer writes. `fence` is the CUDA event
-    recorded after the last launch that read this set: before the rotation
-    rewrites the set, the packer waits on it, so an asynchronous copy still
-    reading these buffers is never overwritten (backpressure, never
-    corruption). One thread packs and dispatches."""
+    with a numpy view that the packer writes. `fence` is the completion
+    event, on the verify stream, of the last launch that read this set:
+    before the rotation rewrites the set, the packer waits on it, so an
+    asynchronous copy still reading these buffers is never overwritten
+    (backpressure, never corruption). The engine's dispatch lock keeps
+    packing, rotation and fencing to one thread at a time."""
 
     __slots__ = ("tensors", "words", "valid", "lo", "hi", "miss", "miss_ok",
                  "sig_x", "sig_y", "fence")
@@ -211,11 +238,22 @@ class BN254Device:
         self.n = bank.n
         self._b2 = (T.f2_pack([self.ref.G2_GEN[0]]), T.f2_pack([self.ref.G2_GEN[1]]))
         self._h_cache: dict[bytes, tuple] = {}
+        # the combine's curves: always on the cios field (module docstring)
+        self._combine_curves = (
+            self.curves if self.curves.F.backend == "cios"
+            else self.Curves(device=self.device, backend="cios")
+        )
         # combine_batch's group-width classes (powers of two) that have run
         # once: the port's stand-in for the reference's compiled kernels
         self._combine_ready: set[int] = set()
         self.stage_sets = 2
         pin = self.device.type == "cuda"
+        # verify and combine each on a stream of their own on the card (None
+        # on the CPU, where torch.cuda.stream(None) changes nothing), and
+        # one dispatch at a time (module docstring, "Threads")
+        self._verify_stream = torch.cuda.Stream(self.device) if pin else None
+        self._combine_stream = torch.cuda.Stream(self.device) if pin else None
+        self._dispatch_lock = threading.Lock()
         self._stage = [
             _StagingSet(self.n, batch_size, self.MISS_CAP, self.curves.F.nlimbs, pin)
             for _ in range(self.stage_sets)
@@ -351,14 +389,23 @@ class BN254Device:
         return out
 
     def dispatch(self, msg, requests):
-        """Enqueue one launch (<= batch_size candidates); returns a handle
-        for `fetch`. On the card the work is in flight when this returns."""
-        return (self._dispatch_one(msg, requests), len(requests))
+        """Enqueue one launch (<= batch_size candidates) on the verify
+        stream; returns a handle for `fetch`. On the card the work, and the
+        copy of its verdicts to pinned host memory, are in flight when this
+        returns. Safe to call from any thread; dispatches run one at a
+        time."""
+        with self._dispatch_lock, torch.cuda.stream(self._verify_stream):
+            verdicts, done = self._dispatch_one(msg, requests)
+        return (verdicts, len(requests), done)
 
     def fetch(self, handle) -> list[bool]:
-        """Wait for a dispatched launch's verdicts; host-ordered."""
-        verdicts, k = handle
-        return [bool(v) for v in verdicts[:k].cpu().tolist()]
+        """Wait for a dispatched launch's verdicts; host-ordered. Waits on
+        the launch's completion event only, so it neither waits for a later
+        launch nor enqueues anything; safe from any thread."""
+        verdicts, k, done = handle
+        if done is not None:
+            done.synchronize()
+        return [bool(v) for v in verdicts[:k].tolist()]
 
     # -- batched aggregate combine (the store's merge path) ---------------------
 
@@ -376,10 +423,11 @@ class BN254Device:
         `compiled_only=False` adds its class. A decline looks like an
         infinity sum, which callers redo on the host the same way."""
         out = []
-        for i in range(0, len(groups), self.batch_size):
-            out.extend(
-                self._combine_chunk(groups[i : i + self.batch_size], compiled_only)
-            )
+        with torch.cuda.stream(self._combine_stream):
+            for i in range(0, len(groups), self.batch_size):
+                out.extend(
+                    self._combine_chunk(groups[i : i + self.batch_size], compiled_only)
+                )
         return out
 
     def _combine_chunk(self, groups, compiled_only: bool = False):
@@ -397,8 +445,9 @@ class BN254Device:
             for i, p in enumerate(g):
                 flat[i * C + j] = p
                 mask[i, j] = p is not None
-        g1, F = self.curves.g1, self.curves.F
-        P = self.curves.pack_g1(flat)
+        curves = self._combine_curves
+        g1, F = curves.g1, curves.F
+        P = curves.pack_g1(flat)
         x, y, inf = g1.to_affine(
             g1.masked_sum(P, torch.from_numpy(mask.reshape(-1)).to(self.device), k)
         )
@@ -412,7 +461,8 @@ class BN254Device:
         range launch, and run the combine classes k = 2, 4 and 8 (pairwise
         merges through wide patch chains; the CombineShim path combines on
         the device only in classes that have run), so the first round pays
-        for none of them. Returns the number of launches issued."""
+        for none of them, and no two threads of a service race to build
+        them. Returns the number of launches issued."""
         bs = BitSet(self.n)
         for i in range(min(self.n, 2)):
             bs.set(i, True)
@@ -423,6 +473,10 @@ class BN254Device:
         for k in (2, 4, 8):
             self.combine_batch([[self.ref.G1_GEN] * k])
             launches += 1
+        if self.device.type == "cuda":
+            # the prefix table was written on the verify stream: every later
+            # reader, on whichever stream or thread, sees it complete
+            torch.cuda.synchronize(self.device)
         self.reset_host_counters()
         return launches
 
@@ -638,6 +692,11 @@ class BN254Device:
         )
 
     def _dispatch_one(self, msg, requests):
+        """Pack, stage and enqueue one launch on the current stream (the
+        verify stream, under `dispatch`). Returns (verdicts, done): on the
+        card the verdicts land in pinned host memory and `done` is the
+        launch's completion event; on the CPU the verdicts are computed
+        and `done` is None."""
         t0 = time.perf_counter()
         plan = self._pack_requests(requests)
         t1 = time.perf_counter()
@@ -645,15 +704,19 @@ class BN254Device:
         self.host_pack_launches += 1
         h_x, h_y = self._h_point(msg)
         verdicts = self._run_plan(plan, self._stage_plan(plan), h_x, h_y)
+        done = None
         if self.device.type == "cuda":
-            # fence the staging set this launch reads: _pack_requests waits
-            # on it before the rotation wraps back onto these buffers
-            fence = torch.cuda.Event()
-            fence.record(torch.cuda.current_stream(self.device))
-            self._stage[self._stage_idx].fence = fence
+            host = torch.empty(verdicts.shape, dtype=verdicts.dtype, pin_memory=True)
+            verdicts = host.copy_(verdicts, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            # the completion event fences the staging set this launch reads:
+            # _pack_requests waits on it before the rotation wraps back onto
+            # these buffers
+            self._stage[self._stage_idx].fence = done
         self.host_dispatch_ms += (time.perf_counter() - t1) * 1000.0
         self.host_dispatch_launches += 1
-        return verdicts
+        return verdicts, done
 
 
 class BN254TorchConstructor(BN254Constructor):

@@ -1,0 +1,12 @@
+"""The shared verify plane: many co-located logical nodes, one device plane.
+
+`BatchVerifierService` (batch_verifier.py) fuses every node's verify
+candidates into shared launches over a `DevicePlane` (plane.py) of device
+engines; mesh_plane.py holds the dual-mode routing policy it consults.
+Meshes of several cards are not ported yet (ROADMAP).
+"""
+
+from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+from handel_tpu_torch.parallel.plane import DeviceLane, DevicePlane
+
+__all__ = ["BatchVerifierService", "DeviceLane", "DevicePlane"]

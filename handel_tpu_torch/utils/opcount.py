@@ -1,6 +1,6 @@
 """Count the kernel-launching torch ops of one verify launch, on the CPU.
 
-    python -m handel_tpu_torch.utils.opcount [--registry 64] [--lanes 4]
+    python -m handel_tpu_torch.utils.opcount [--registry 64] [--lanes 4] [--combine-lanes 128]
 
 Runs one range launch per field backend ("cios", then "rns") through
 `BN254TorchScheme(device="cpu")` under a `TorchDispatchMode` that counts
@@ -10,7 +10,9 @@ as one kernel. The count does not depend on the batch width, so it predicts
 a card's device-activity count per launch at any width; it is a count, not
 a device measurement. `scopes` attributes the ops issued inside the per-mul
 `RnsField.mul` and inside `Field.inv` (the affine conversion's Fermat
-inverse) on top of the total. Prints one JSON line per backend.
+inverse) on top of the total. Prints one JSON line per backend, then one
+per backend for a `combine_batch` chunk at `--combine-lanes` lanes computed
+on that backend's field.
 """
 
 from __future__ import annotations
@@ -54,29 +56,14 @@ class OpCounter(TorchDispatchMode):
         return sum(v for k, v in self.counts.items() if k not in VIEW_OPS)
 
 
-def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> dict:
-    from handel_tpu_torch.core.bitset import BitSet
-    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
-    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
-    from handel_tpu_torch.ops import bn254_ref as bn
+def _counted(run):
+    """Run `run()` under an OpCounter, each kernel wrapper's plain version
+    counted as one op (the card runs it as one kernel, `kernel` in the
+    counts), with the per-mul `RnsField.mul` and `Field.inv` scoped.
+    Returns (counter, result)."""
     from handel_tpu_torch.ops.fp import Field
     from handel_tpu_torch.ops.rns import RnsField
 
-    rng = random.Random(seed)
-    sks = [rng.randrange(1, 1 << 30) for _ in range(registry)]
-    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
-    msg = b"op count"
-    h = hash_to_g1(msg)
-    requests = []
-    for _ in range(lanes):
-        lo = rng.randrange(0, registry // 2)
-        idx = range(lo, lo + registry // 4)
-        bs = BitSet(registry)
-        for i in idx:
-            bs.set(i, True)
-        requests.append((bs, BN254Signature(bn.g1_mul(h, sum(sks[i] for i in idx) % bn.R))))
-    cons = BN254TorchScheme(batch_size=lanes, device="cpu", fp_backend=backend).constructor
-    cons.prepare(pks)
     counter = OpCounter()
     plain = {(Field, "_mul_plain"), (RnsField, "_mul_resident_core")}
     scoped = {(RnsField, "mul"): "rns_per_mul", (Field, "inv"): "field_inv"}
@@ -107,10 +94,35 @@ def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -
         for key, scope in scoped.items():
             setattr(*key, in_scope(saved[key], scope))
         with counter:
-            verdicts = cons.batch_verify(msg, pks, requests)
+            result = run()
     finally:
         for key, fn in saved.items():
             setattr(*key, fn)
+    return counter, result
+
+
+def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> dict:
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+    from handel_tpu_torch.ops import bn254_ref as bn
+
+    rng = random.Random(seed)
+    sks = [rng.randrange(1, 1 << 30) for _ in range(registry)]
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+    msg = b"op count"
+    h = hash_to_g1(msg)
+    requests = []
+    for _ in range(lanes):
+        lo = rng.randrange(0, registry // 2)
+        idx = range(lo, lo + registry // 4)
+        bs = BitSet(registry)
+        for i in idx:
+            bs.set(i, True)
+        requests.append((bs, BN254Signature(bn.g1_mul(h, sum(sks[i] for i in idx) % bn.R))))
+    cons = BN254TorchScheme(batch_size=lanes, device="cpu", fp_backend=backend).constructor
+    cons.prepare(pks)
+    counter, verdicts = _counted(lambda: cons.batch_verify(msg, pks, requests))
     if not all(verdicts):
         raise AssertionError(f"{backend}: a valid candidate was rejected")
     top = sorted(
@@ -122,14 +134,39 @@ def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -
             "top": dict(top)}
 
 
+def count_combine(backend: str, lanes: int, k: int = 4, seed: int = 1) -> dict:
+    """The kernel-launching ops of one `combine_batch` chunk (one group of k
+    points, class k, after a warm call) computed on the given backend's
+    field. The engine itself combines on the cios field whatever its
+    backend; this count is why (models/bn254_torch.py)."""
+    from handel_tpu_torch.models.bn254 import BN254PublicKey
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+    from handel_tpu_torch.ops import bn254_ref as bn
+    from handel_tpu_torch.ops.curve import BN254Curves
+
+    rng = random.Random(seed)
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, rng.randrange(1, 1 << 30))) for _ in range(4)]
+    pts = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(k)]
+    eng = BN254Device(pks, batch_size=lanes, device="cpu")
+    eng._combine_curves = BN254Curves(device="cpu", backend=backend)
+    eng.combine_batch([pts])
+    counter, _ = _counted(lambda: eng.combine_batch([pts]))
+    return {"backend": backend, "launch_class": f"combine k={k}", "lanes": lanes,
+            "kernel_launching_ops": counter.launches(), "kernel_calls": counter.counts["kernel"],
+            "scopes": dict(counter.scopes)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--registry", type=int, default=64)
     ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--combine-lanes", type=int, default=128)
     args = ap.parse_args()
     torch.set_num_threads(1)
     for backend in ("cios", "rns"):
         print(json.dumps(count_range_launch(backend, args.registry, args.lanes)), flush=True)
+    for backend in ("cios", "rns"):
+        print(json.dumps(count_combine(backend, args.combine_lanes)), flush=True)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ against the tree's plain version, exactly. Where the tree's wrapper builds
 several instances (B1's lanes per column `tpi`, B2's columns per block
 `tile`), each is timed too (`by_instance`). Prints one JSON line per kernel
 and width, then the card's name and power limit, then one JSON line with all
-figures. Exits non-zero without a CUDA device.
+figures. Beside each kernel time, `plain_ms` is the device time of the plain
+PyTorch version on the same operands (CUDA events, mean of 3 warm calls).
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -98,7 +100,8 @@ def main(argv=None) -> int:
             if not torch.equal(fn(a, b), plain(a, b)):
                 raise AssertionError(f"{name} != plain at {rows} rows, {cols} columns")
             fig = dict(label=args.label, kernel=name, rows=rows, cols=cols,
-                       ms=smoke.graph_ms(fn, a, b), bound_ms=bound[0], bound_by=bound[1])
+                       ms=smoke.graph_ms(fn, a, b), bound_ms=bound[0], bound_by=bound[1],
+                       plain_ms=smoke.cuda_ms(lambda: plain(a, b), 3))
             kernel, attr, choices = instances[name]
             if hasattr(kernel, attr):
                 fig["by_instance"] = smoke.each_instance(

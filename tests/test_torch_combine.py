@@ -111,3 +111,28 @@ def test_device_combine_before_prepare_and_after_warmup(points):
     assert cons._device._combine_ready == {2, 4, 8}
     groups = [g1[:2], g1[:3], g1[3:8]]
     assert cons.device_combine(groups) == [host_fold(g) for g in groups]
+
+
+def test_rns_engine_combines_on_the_cios_field(points):
+    """An rns engine's combine runs on the cios field while its verify stays
+    on rns; the sums equal the host fold."""
+    pks, g1 = points
+    dev = BN254Device([BN254PublicKey(p) for p in pks], batch_size=C, device="cpu",
+                      fp_backend="rns")
+    assert dev.curves.F.backend == "rns"
+    assert dev._combine_curves.F.backend == "cios"
+    groups = class_groups(g1, 4, seed=304)
+    assert dev.combine_batch(groups) == [host_fold(g) for g in groups]
+
+
+def test_combine_op_counts_per_field():
+    """utils/opcount.py's combine count: on the cios field the chunk's
+    multiplies are 332 kernel calls (325 of them the Fermat inverse); on
+    the rns field the per-mul product issues more than 30x the ops, which is
+    why the engine combines on cios whatever its backend."""
+    from handel_tpu_torch.utils.opcount import count_combine
+
+    cios, rns = count_combine("cios", C), count_combine("rns", C)
+    assert (cios["kernel_calls"], cios["scopes"]["field_inv"]) == (332, 325)
+    assert rns["kernel_calls"] == 0
+    assert rns["kernel_launching_ops"] > 30 * cios["kernel_launching_ops"]

@@ -189,7 +189,7 @@ def test_verify_on_card(card):
 def test_combine_batch_on_card_equals_cpu(card, backend):
     """BN254Device.combine_batch on the card equals the same call on the CPU
     and the host fold, in the warmed classes 2, 4 and 8 and across chunks;
-    on the cios backend it launches B1."""
+    it launches B1 on either backend (the combine runs on the cios field)."""
     from handel_tpu_torch.kernels.fp_mont import mont_mul
     from handel_tpu_torch.models.bn254 import BN254PublicKey
     from handel_tpu_torch.models.bn254_torch import BN254Device
@@ -212,7 +212,7 @@ def test_combine_batch_on_card_equals_cpu(card, backend):
     on_card = BN254Device(pks, batch_size=4, device=card, fp_backend=backend)
     before = mont_mul.launches
     got = on_card.combine_batch(groups)
-    assert (mont_mul.launches > before) == (backend == "cios")
+    assert mont_mul.launches > before
     assert got == on_cpu.combine_batch(groups) == want
     on_card.warmup()
     for k in (2, 3, 4, 7, 8):
@@ -346,3 +346,156 @@ def test_graph_replay_equals_eager_chain(card, kernel):
     assert tally.graphs == 1 and tally.captured_calls == 6
     assert (tally.replays, tally.replayed_calls) == (2, 12)
     assert torch.equal(got, chain(fn, a, b, 6))
+
+
+def _service_keys():
+    """16 registry keys from seeded scalars, and the scalars."""
+    from handel_tpu_torch.models.bn254 import BN254PublicKey
+
+    rng = random.Random(41)
+    sks = [rng.randrange(1, 1 << 20) for _ in range(16)]
+    return sks, [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+
+
+def _service_engine(card):
+    """A prepared 16-key, 4-lane cios engine on the card, and its keys."""
+    from handel_tpu_torch.models.bn254_torch import BN254TorchConstructor
+
+    sks, pks = _service_keys()
+    cons = BN254TorchConstructor(batch_size=4, device=card)
+    return cons.prepare(pks), sks, pks
+
+
+def _service_candidates(sks):
+    """Two launches' worth: forged signatures, a wrong message, an empty
+    bitset among valid ranges; and the verdicts each must get."""
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.models.bn254 import BN254Signature, hash_to_g1
+
+    def cand(idx, forge=False, msg=b"service engine"):
+        bs = BitSet(16)
+        for i in idx:
+            bs.set(i, True)
+        k = (sum(sks[i] for i in idx) + forge) % bn.R
+        return bs, BN254Signature(bn.g1_mul(hash_to_g1(msg), k) if k else None)
+
+    reqs = [cand(range(2, 10)), cand(range(0, 6), forge=True), cand([3, 4, 6, 8, 9]),
+            cand(range(5, 9), msg=b"another message"), cand([]), cand(range(9, 16)),
+            cand([0, 1], forge=True), cand([15])]
+    return reqs, [True, False, True, False, False, True, False, True]
+
+
+def _combine_groups(seed):
+    rng = random.Random(seed)
+    pts = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(6)]
+    groups = [[rng.choice(pts + [None]) for _ in range(rng.randrange(1, 5))] for _ in range(5)]
+    want = []
+    for g in groups:
+        acc = None
+        for q in g:
+            if q is not None:
+                acc = q if acc is None else bn.g1_add(acc, q)
+        want.append(acc)
+    return groups, want
+
+
+def test_service_over_engine_on_card_with_concurrent_combines(card):
+    """The concurrency case of tests/test_torch_service_engine.py on the
+    card: verify and combine on streams of their own, two launches through
+    a BatchVerifierService(max_inflight=2) while the event-loop thread
+    combines; verdicts equal sequential batch_verify and the host oracle,
+    sums equal the host fold, B1 launched."""
+    import asyncio
+
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.models.bn254 import BN254Scheme
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+
+    eng, sks, pks = _service_engine(card)
+    streams = {eng._verify_stream, eng._combine_stream, torch.cuda.current_stream(card)}
+    assert None not in streams and len(streams) == 3
+    reqs, want = _service_candidates(sks)
+    groups, want_sums = _combine_groups(5)
+
+    async def go():
+        svc = BatchVerifierService(eng, max_delay_ms=1.0, max_inflight=2, fallback=None)
+        try:
+            verify = asyncio.gather(*(svc.verify(b"service engine", pks, reqs[i:i + 2],
+                                                 session=f"s{i // 2}")
+                                      for i in range(0, len(reqs), 2)))
+            await asyncio.sleep(0.05)
+            sums, overlapped = [], []
+            for _ in range(3):
+                sums.append(eng.combine_batch(groups))
+                overlapped.append(not verify.done())
+                await asyncio.sleep(0)
+            return [v for part in await verify for v in part], sums, overlapped, svc.values()
+        finally:
+            svc.stop()
+
+    before = mont_mul.launches
+    got, sums, overlapped, values = asyncio.run(go())
+    assert mont_mul.launches > before
+    assert overlapped[0], "the combine did not run while a launch was in flight"
+    assert got == want
+    assert eng.batch_verify(b"service engine", reqs) == want
+    assert BN254Scheme().constructor.batch_verify(b"service engine", pks, reqs) == want
+    assert all(s == want_sums for s in sums)
+    assert values["verifierLaunches"] == 2.0
+    assert values["failoverBatches"] == values["deviceRetryCt"] == 0.0
+
+
+def test_combine_is_not_held_behind_an_inflight_verify_launch(card):
+    """A verify launch is dispatched from a worker thread behind about 3 s
+    of device work at the head of the verify stream; a combine_batch that
+    starts meanwhile on this thread returns in well under that time (it
+    waits for the combine stream only), and before the launch's fetch."""
+    import threading
+    import time
+
+    eng, sks, _ = _service_engine(card)
+    reqs, want = _service_candidates(sks)
+    groups, want_sums = _combine_groups(6)
+    with torch.cuda.stream(eng._verify_stream):
+        torch.cuda._sleep(int(3 * 1.98e9))  # >= 3 s at the H100's highest clock
+    out = {}
+
+    def verify():
+        handle = eng.dispatch(b"service engine", reqs[:4])
+        out["verdicts"] = eng.fetch(handle)
+        out["fetched"] = time.perf_counter()
+
+    worker = threading.Thread(target=verify)
+    worker.start()
+    t0 = time.perf_counter()
+    sums = eng.combine_batch(groups)
+    combined = time.perf_counter()
+    worker.join()
+    assert sums == want_sums
+    assert combined - t0 < 1.5, f"the combine waited {combined - t0:.2f} s"
+    assert combined < out["fetched"]
+    assert out["verdicts"] == want[:4]
+
+
+def test_bn254_plane_on_the_card(card):
+    """bn254_plane puts one warmed engine on each card (here cuda:0); a
+    service over the plane verifies through it."""
+    import asyncio
+
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+    from handel_tpu_torch.parallel.plane import bn254_plane
+
+    sks, pks = _service_keys()
+    reqs, want = _service_candidates(sks)
+    plane = bn254_plane(pks, 1, batch_size=4)
+    (lane,) = plane.lanes
+    assert lane.engine.device == card and lane.engine._combine_ready == {2, 4, 8}
+
+    async def go():
+        svc = BatchVerifierService(plane, fallback=None)
+        try:
+            return await svc.verify(b"service engine", pks, reqs[:4])
+        finally:
+            svc.stop()
+
+    assert asyncio.run(go()) == want[:4]

@@ -314,6 +314,42 @@ def test_port_scheme_wires_the_combine_shim():
     assert h.combine_shim.device_combine([[None, None]]) is None
 
 
+@pytest.mark.parametrize("n, launches, device_groups", [(4, 8, 0), (6, 12, 4), (8, 24, 8)])
+def test_per_node_round_sizes(n, launches, device_groups):
+    """The per-node round's shape by committee size (chip_smoke.py phase 7
+    runs ROUND_NODES of them at 128 lanes): BN254 keys and packets, a
+    verifier that accepts every candidate, and a device combine folding on
+    the host. Its verify launches (128-lane chunks) and the merge groups
+    that reach the device combine (4 points or more) are fixed by the
+    protocol: at 4 nodes no group reaches the device, so phase 7 needs 6."""
+    from handel_tpu_torch.models.bn254 import BN254Scheme
+    from handel_tpu_torch.ops import bn254_ref as bn
+
+    scheme = BN254Scheme()
+    cons = scheme.constructor
+    chunks = []
+    cons.batch_verify = lambda msg, pks, reqs: (chunks.append(-(-len(reqs) // 128)),
+                                                [True] * len(reqs))[1]
+
+    def fold(group):
+        acc = None
+        for p in group:
+            acc = p if acc is None else bn.g1_add(acc, p)
+        return acc
+
+    cons.device_combine = lambda groups: [fold(g) for g in groups]
+
+    async def go():
+        cluster = LocalCluster(n, scheme=scheme)
+        return cluster, await cluster_round(cluster, 120.0)
+
+    cluster, results = run(go())
+    assert len(results) == n
+    values = [h.values() for h in cluster.handels.values()]
+    assert sum(chunks) == launches
+    assert sum(v["combineDeviceGroups"] for v in values) == device_groups
+
+
 @pytest.mark.slow
 def test_bn254_round_on_the_port_engine_cpu():
     """The main path on the CPU through the port's own harness: 8 nodes on
