@@ -72,7 +72,7 @@ Phases, one line each, any failure exits non-zero with no result line:
               are its wrapper counts less the calls captured into graphs plus
               the calls the graphs replayed.
   7. round    a Handel round through the port alone: the port's LocalCluster
-              of 6 nodes on BN254TorchScheme(batch_size=128) (cios), with a
+              of 5 nodes on BN254TorchScheme(batch_size=128) (cios), with a
               forged level-1 candidate (a one-bit multisignature signed by a
               key outside the registry) injected into node 0 before the wait.
               Every node's final signature must reach the threshold and
@@ -96,7 +96,7 @@ Phases, one line each, any failure exits non-zero with no result line:
               load), launches, fill, host pack and dispatch ms per launch,
               the seconds in which a dispatch and a fetch were in flight
               together, peak memory, B1's calls by column count.
-     round    a 128-node Handel round on BN254TorchScheme(batch_size=128),
+     round    a 32-node Handel round on BN254TorchScheme(batch_size=128),
               cios, every node verifying through one service over the
               prepared engine (Config.verifier = service.verify, with
               InfiniteTimeout and random.Random(1 + i)), phase 7's forgery
@@ -109,23 +109,54 @@ Phases, one line each, any failure exits non-zero with no result line:
               In every phase-8 run no failover, no retry, the breaker
               closed at the end; an exception out of a lane's dispatch or
               fetch or out of device_combine fails the run at once.
+              The rounds were 128 nodes until phase 9 took over the
+              128-node service path at full width; 32 is the smallest case
+              of the CPU parity test that holds this round to the JAX
+              package's (tests/test_torch_service_engine.py), and it keeps
+              the script inside its time limit.
+  9. sim      the port's entry point as a user runs it, in a subprocess with
+              a time limit: python -m handel_tpu_torch.sim --config
+              <tmp>/sim.toml --workdir <tmp>, where sim.toml is the repo's
+              results/handel_128_device.toml (128 nodes, threshold 120, two
+              node processes sharing the card, UDP, one shared verifier per
+              process) loaded and dumped by the port's sim/config.py with
+              scheme "bn254-cuda", fp_backend "cios", max_timeout_s 600 and
+              batch_size 128 (the file's 16 lanes would need about 190
+              host-bound launches in each process). The run must exit 0,
+              every node process must print `finished OK` (each node checks
+              its own final signature on the host) and a `node process
+              kernels` line in which its shared verifier launched at least
+              once and B1 launched; the results CSV must show candidates,
+              the sigen wall, the device_launch columns and merges on the
+              device combine. The service there has no host fallback, so a
+              device fault fails the run. The line gives the wall, the
+              CSV's launches, candidates and occupancy, the sigen wall, the
+              launch and dispatch times, and each process's verifier
+              launches, peak device memory, B1 launches and seconds in
+              device combines (from its `node process kernels` line).
 
 Each path of phases 4, 6, 7 and 8 is one main-path run: every kernel's launch
-count is set to 0 just before it and read just after. Then one JSON line of
-kernel figures, the seconds each phase took (`phases`), the total, the
-nvidia-smi line again, and last {"ok": true, "device": {...}}. Exits non-zero
-without a CUDA device.
+count is set to 0 just before it and read just after; phase 9's counts are
+the node processes' own, which start at 0. Then one JSON line of kernel
+figures, the seconds each phase took (`phases`), the total, the nvidia-smi
+line again, and last {"ok": true, "device": {...}}. Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import csv
 import json
+import os
 import random
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -139,14 +170,21 @@ DENSE_CANDIDATES = 126
 TIMED_LAUNCHES = 1
 # the per-node round's committee: every node's launches queue on the one
 # event loop, so the fewest nodes whose store merges still reach the device
-# combine (groups of 4 points or more; none do at 4 nodes, see
-# tests/test_torch_protocol.py::test_per_node_round_sizes)
-ROUND_NODES = 6
+# combine (groups of 4 points or more; none do at 4 nodes, one does at 5,
+# see tests/test_torch_protocol.py::test_per_node_round_sizes)
+ROUND_NODES = 5
 ROUND_TIMEOUT_S = 600.0
 # phase 8: sessions of RANGE_CANDIDATES range candidates at once, and the
 # committee of the round through one service
 SERVICE_SESSIONS = 4
-SERVICE_ROUND_NODES = 128
+SERVICE_ROUND_NODES = 32
+# phase 9: the repo's 128-node device config through the port's sim entry
+# point, with these changes (module docstring)
+SIM_CONFIG = "results/handel_128_device.toml"
+SIM_CHANGES = {"scheme": "bn254-cuda", "fp_backend": "cios", "max_timeout_s": 600.0,
+               "batch_size": LANES}
+# the subprocess's own limit: a stalled barrier fails inside max_timeout_s
+SIM_LIMIT_S = 660.0
 # a secret key outside the round's registry (its keys come from
 # new_keypair(seed=i), SHA-256 derived): the forger of phase 7
 FORGER_SCALAR = 0x5EED_F0E6
@@ -1259,6 +1297,115 @@ def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launc
     return fig
 
 
+def sim_phase() -> dict:
+    """Phase 9: the port's sim entry point on the repo's 128-node device
+    config (module docstring), in a subprocess of its own process group, so
+    that the time limit stops the node processes too. Raises on any failed
+    check; returns the run's figures."""
+    from handel_tpu_torch.sim.config import dump_config, load_config
+
+    root = Path(__file__).resolve().parent
+    cfg = load_config(str(root / SIM_CONFIG))
+    for key, value in SIM_CHANGES.items():
+        setattr(cfg, key, value)
+    run = cfg.runs[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_") as tmp:
+        cfg_path = os.path.join(tmp, "sim.toml")
+        with open(cfg_path, "w") as f:
+            f.write(dump_config(cfg))
+        env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
+        cmd = [sys.executable, "-m", "handel_tpu_torch.sim", "--config", cfg_path,
+               "--workdir", tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=SIM_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+            raise AssertionError(
+                f"sim: no result within {SIM_LIMIT_S} s\n{out[-2000:]}\n{err[-4000:]}")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall_s = time.perf_counter() - t0
+        logs = {}
+        for name in sorted(os.listdir(tmp)):
+            if name.startswith("node_0_") and name.endswith((".out", ".err")):
+                with open(os.path.join(tmp, name)) as f:
+                    logs[name] = f.read()
+        if proc.returncode != 0 or "run 0: success" not in out:
+            tails = "\n".join(f"--- {k}\n{v[-3000:]}" for k, v in logs.items())
+            raise AssertionError(
+                f"sim: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}\n{tails}")
+        processes = []
+        for name, text in logs.items():
+            if not name.endswith(".out"):
+                continue
+            if "node process finished OK" not in text:
+                raise AssertionError(f"sim: {name} has no `finished OK` line:\n{text[-3000:]}")
+            (kern,) = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+                       if ln.startswith("node process kernels: ")]
+            processes.append(kern)
+        with open(os.path.join(tmp, "results_0.csv"), newline="") as f:
+            header, row = list(csv.reader(f))[:2]
+    col = dict(zip(header, map(float, row)))
+    if len(processes) != run.processes:
+        raise AssertionError(f"sim: {len(processes)} node processes, expected {run.processes}")
+    launches = col["device_verifier_verifierLaunches_sum"]
+    per_process = [p["verifier_launches"] for p in processes]
+    if launches < run.processes or not all(n and n >= 1 for n in per_process):
+        raise AssertionError(f"sim: {launches} launches, by process {per_process}: "
+                             "a shared verifier never launched")
+    if not col["device_verifier_verifierCandidates_sum"] > 0:
+        raise AssertionError("sim: the shared verifiers took no candidate")
+    if not col["sigen_wall_avg"] > 0:
+        raise AssertionError("sim: no sigen wall time in the results")
+    launch_cols = [k for k in header if k.startswith("device_launch_")]
+    if not launch_cols:
+        raise AssertionError("sim: no device_launch_* column in the results")
+    for k in ("device_verifier_failoverBatches_sum", "device_verifier_deviceRetryCt_sum"):
+        if col[k] != 0:
+            raise AssertionError(f"sim: {k} = {col[k]}")
+    if not col["sigs_combineDeviceGroups_sum"] > 0:
+        raise AssertionError("sim: no merge reached the device combine")
+    b1 = sum(p["launches"]["fp_mont_mul"] for p in processes)
+    if b1 == 0 or any(p["launches_in_round"]["fp_mont_mul"] == 0 for p in processes):
+        raise AssertionError(f"sim: B1 did not launch in every node process: {processes}")
+    dispatch_calls = col["device_dispatch_dispatchCalls_sum"]
+    fig = {
+        "config": SIM_CONFIG, "reduced": SIM_CHANGES, "nodes": run.nodes,
+        "threshold": run.resolved_threshold(), "processes": run.processes,
+        "network": cfg.network, "shared_verifier": cfg.shared_verifier,
+        "period_ms": run.handel.period_ms, "timeout_ms": run.handel.timeout_ms,
+        "wall_s": wall_s, "launches": launches,
+        "candidates": col["device_verifier_verifierCandidates_sum"],
+        "occupancy_avg": col["device_verifier_verifierOccupancy_avg"],
+        "launch_fill_avg": col["device_verifier_launchFillRatio_avg"],
+        "dedup_hits": col["device_verifier_dedupHits_sum"],
+        "sigen_wall_avg_s": col["sigen_wall_avg"], "sigen_wall_max_s": col["sigen_wall_max"],
+        "launch_time_ms_avg": col["device_launch_launchTimeMs_avg"],
+        "launch_time_ms_max": col["device_launch_launchTimeMs_max"],
+        "dispatch_ms_per_call": col["device_dispatch_dispatchTimeMs_sum"] / max(1.0, dispatch_calls),
+        "dispatch_max_ms": col["device_dispatch_dispatchMaxMs_max"],
+        "sig_verify_failed": col["sigs_sigVerifyFailed_sum"],
+        "combine_device_groups": col["sigs_combineDeviceGroups_sum"],
+        "combine_host_groups": col["sigs_combineHostGroups_sum"],
+        "subgroup_checks": col["device_subgroup_g2SubgroupChecks_sum"],
+        "subgroup_check_ms": col["device_subgroup_g2SubgroupCheckTimeMs_sum"],
+        "device_combine_s": [p["device_combine"]["combineTimeMs"] / 1000.0 for p in processes],
+        "verifier_launches_by_process": per_process,
+        "node_processes": processes, "b1_launches": b1,
+        "b1_launches_in_round": sum(p["launches_in_round"]["fp_mont_mul"] for p in processes),
+    }
+    line("sim", **fig)
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -1395,6 +1542,9 @@ def main() -> int:
     srnd_rns = service_round_phase(dev, counters, "rns", "round_rns", "rns_mont_mul_resident",
                                    ("lab_cios_fullwidth", "lab_separated"))
     done("service_round_rns")
+    torch.cuda.empty_cache()  # phase 9's node processes share the card
+    sim = sim_phase()
+    done("sim")
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
@@ -1420,7 +1570,9 @@ def main() -> int:
               on_path_range_launch=on_path["fp_mont_mul"],
               on_round={"launches": rnd["kernel_launches"]["fp_mont_mul"],
                         "widths": rnd["widths"]},
-              on_service=on_service),
+              on_service=on_service,
+              on_sim={"launches": sim["b1_launches"],
+                      "launches_in_round": sim["b1_launches_in_round"]}),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],

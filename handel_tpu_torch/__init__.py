@@ -1,6 +1,6 @@
 """PyTorch + CUDA port of handel_tpu: the Handel protocol core, the shared
-batch verifier, and BLS-over-BN254 batch verification on the CIOS and the
-RNS field backends.
+batch verifier, BLS-over-BN254 batch verification on the CIOS and the RNS
+field backends, and the sim's localhost run path.
 
 The JAX package (`handel_tpu`) stays the reference. This package imports
 torch and numpy, never jax and nothing of `handel_tpu`; module names mirror
@@ -21,6 +21,8 @@ the reference so each counterpart is easy to find:
                          batched G1 combine), BN254TorchConstructor,
                          BN254TorchScheme
   models/fake.py         the fake scheme, for fast protocol tests
+  models/registry.py     scheme names -> schemes (`bn254-cuda` verifies on
+                         the engine; the JAX package's device names too)
   parallel/              the shared batch verifier (batch_verifier.py:
                          BatchVerifierService) over a device plane
                          (plane.py), with its mode policy (mesh_plane.py)
@@ -33,7 +35,12 @@ the reference so each counterpart is easy to find:
                          packets, config, timeouts, peer scoring, bitset,
                          scheme interfaces, and the in-process harness
                          (test_harness.py: LocalCluster)
+  network/               the UDP and TCP transports and their wire codecs
+  sim/                   python -m handel_tpu_torch.sim: TOML config, keygen
+                         and registry CSV, node processes behind UDP
+                         barriers, the monitor's results CSV
   utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
+                         (the sim's processes: $HANDEL_TORCH_DEVICE)
   utils/breaker.py       the circuit breaker of the service's device lanes
   utils/opcount.py       kernel-launching ops per verify launch and per
                          combine, on the CPU

@@ -21,6 +21,7 @@ timer wheel.
 from __future__ import annotations
 
 import asyncio
+import time
 from typing import Sequence
 
 from handel_tpu_torch.core.bitset import BitSet
@@ -37,7 +38,7 @@ from handel_tpu_torch.core.processing import BatchProcessing, CombineShim
 from handel_tpu_torch.core.report import WarnOnce
 from handel_tpu_torch.core.store import SignatureStore
 from handel_tpu_torch.core.timeout import LinearTimeout
-from handel_tpu_torch.core.trace import trace_now
+from handel_tpu_torch.core.trace import LogHistogram, trace_now
 
 
 class Level:
@@ -200,6 +201,7 @@ class Handel:
         self.ids = self.partitioner.levels()
         self.threshold = self.c.contributions
         self.done = False
+        self.start_time = 0.0
         self.best: MultiSignature | None = None
         self.final_signatures: asyncio.Queue[MultiSignature] = asyncio.Queue()
 
@@ -260,12 +262,16 @@ class Handel:
         # WARN, the rest are debug + the logWarnCt counter (core/report.py)
         self._warn = WarnOnce(self.log)
         self._periodic_task: asyncio.Task | None = None
+        # seconds from start() to each level's receive completion, on the
+        # monitor's histogram plane
+        self.hist_level_complete = LogHistogram()
 
     # -- lifecycle (handel.go:156-182) -------------------------------------
 
     def start(self) -> None:
         """Start processing, timeouts and the periodic updater. Must be called
         from a running asyncio event loop."""
+        self.start_time = time.monotonic()
         self.proc.start()
         self.timeout.start()
         self._periodic_task = asyncio.get_running_loop().create_task(
@@ -423,6 +429,7 @@ class Handel:
             return
         self.log.debug("level_complete", lid)
         lvl.rcv_completed = True
+        self.hist_level_complete.add(time.monotonic() - self.start_time)
 
     def _fastpath_level(self, lid: int, up: Level) -> None:
         # update_sig_to_send rejects anything not strictly better than
@@ -491,6 +498,10 @@ class Handel:
             "bestCardinality": float(
                 self.best.cardinality() if self.best is not None else 0
             ),
+            # departures are not ported (ROADMAP): both counts stay 0, and
+            # the keys keep the monitor's CSV schema the JAX package's
+            "departedCt": 0.0,
+            "thresholdUnreachableCt": 0.0,
             **self._warn.values(),
             **self.proc.values(),
             **self.store.values(),
@@ -504,3 +515,20 @@ class Handel:
             sum(lvl.demote_skips for lvl in self.levels.values())
         )
         return out
+
+    def gauge_keys(self) -> set[str]:
+        """Point-in-time keys, never delta'd as counters (sim/monitor.py
+        CounterIO)."""
+        return (
+            {"bestCardinality"}
+            | self.proc.gauge_keys()
+            | self.scorer.gauge_keys()
+        )
+
+    def histograms(self) -> dict[str, LogHistogram]:
+        """Latency distributions for the monitor's histogram plane
+        (sim/monitor.py HistogramIO -> `_p50/_p90/_p99` CSV columns)."""
+        return {
+            "levelCompleteS": self.hist_level_complete,
+            **self.proc.histograms(),
+        }

@@ -44,6 +44,7 @@ class IncomingSig:
     is_ind: bool = False
     mapped_index: int = 0
     verify_tries: int = 0  # verifier-error retry count (processing requeue)
+    enqueue_ts: float = 0.0  # queue-wait start (processing), trace clock
 
     @property
     def individual(self) -> bool:

@@ -106,3 +106,7 @@ class PeerScorer:
             "peersBanned": float(len(self._banned)),
             "peerBanRefused": float(self.ban_refused),
         }
+
+    def gauge_keys(self) -> set[str]:
+        """The ban-set size is a level, not an event count."""
+        return {"peersBanned"}

@@ -248,8 +248,10 @@ class BatchProcessing:
         self._task: asyncio.Task | None = None
         self._stopped = False
 
-        # verifier wall per launch (a clock read per batch; the round's
-        # verify p50)
+        # latency distributions for the monitor's histogram plane: enqueue
+        # to selection per candidate, and the verifier wall per launch (the
+        # round's verify p50)
+        self.hist_queue_wait = LogHistogram()
         self.hist_verify = LogHistogram()
 
         # reporter counters (processing.go:242-256)
@@ -295,6 +297,7 @@ class BatchProcessing:
         if mark <= 0:
             self.sig_suppressed += 1
             return
+        sp.enqueue_ts = trace_now()  # queue-wait start (re-stamped on requeue)
         self._seq += 1
         heapq.heappush(self._heap, (-mark, self._seq, sp))
         self._live[self._seq] = sp
@@ -389,6 +392,9 @@ class BatchProcessing:
     async def _verify_and_publish(self, batch: list[IncomingSig]) -> None:
         start = time.perf_counter()
         t_deq = trace_now()
+        for sp in batch:
+            if sp.enqueue_ts:
+                self.hist_queue_wait.add(max(0.0, t_deq - sp.enqueue_ts))
         # Dedup pass: a candidate whose exact content — (level, bitset words,
         # signature bytes) — this node has already judged takes its remembered
         # verdict; duplicates WITHIN the batch ride the first copy's lane.
@@ -512,6 +518,9 @@ class BatchProcessing:
             "sigQueueSize": self.sig_queue_size / checked if checked else 0.0,
             "sigSuppressed": float(self.sig_suppressed),
             "sigDroppedOverflow": float(self.sig_dropped_overflow),
+            # departures are not ported (ROADMAP): the count stays 0, and
+            # the key keeps the monitor's CSV schema the JAX package's
+            "sigDepartedDropped": 0.0,
             "sigVerifyFailed": float(self.sig_verify_failed),
             "sigCheckingTime": (
                 self.sig_checking_time_ms / checked if checked else 0.0
@@ -519,6 +528,19 @@ class BatchProcessing:
             # dedup plane: sigCheckedCt counts SELECTED candidates; subtract
             # dedupHits for actual device verifications
             **self.dedup.values(),
+        }
+
+    def gauge_keys(self) -> set[str]:
+        """Explicit gauge declarations: the per-candidate averages and the
+        dedup cache's point-in-time keys are never delta'd as counters
+        (sim/monitor.py CounterIO)."""
+        return {"sigQueueSize", "sigCheckingTime"} | self.dedup.gauge_keys()
+
+    def histograms(self) -> dict[str, LogHistogram]:
+        """Latency distributions for the monitor's histogram plane."""
+        return {
+            "queueWaitS": self.hist_queue_wait,
+            "verifyLatencyS": self.hist_verify,
         }
 
 
@@ -534,6 +556,7 @@ class FifoProcessing(BatchProcessing):
     """
 
     def _enqueue(self, sp: IncomingSig) -> None:
+        sp.enqueue_ts = trace_now()
         self._todos.append(sp)
         if len(self._todos) > self.max_pending:  # same drop-oldest bound
             self._todos.pop(0)

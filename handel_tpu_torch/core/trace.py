@@ -3,15 +3,16 @@ handel_tpu/core/trace.py that the processing pipeline and Handel read.
 
 `LogHistogram` has fixed log-spaced buckets (the same boundaries everywhere,
 so per-node histograms merge by summing counts): the per-launch verify
-latency of a round is read from it. The reference's span flight recorder,
-and its queue-wait and level-completion histograms, are not ported yet
-(ROADMAP).
+latency of a round, the queue wait and the level completion times are read
+from it, and its sparse wire form carries them to the sim's monitor. The
+reference's span flight recorder is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import math
 import time
+from typing import Mapping
 
 #: epoch-seconds trace clock shared by every process on a host; packets
 #: carry it as their send stamp (core/net.py)
@@ -75,6 +76,33 @@ class LogHistogram:
                 mid = math.sqrt(blo * bhi)
                 return min(max(mid, self.lo), self.hi)
         return self.hi  # unreachable while count is consistent
+
+    # -- wire form (sim/monitor.py sink payloads) ---------------------------
+
+    def to_sparse(self) -> dict:
+        return {
+            "b": {str(i): c for i, c in enumerate(self.counts) if c},
+            "sum": self.sum,
+            "lo": self.lo if self.count else 0.0,
+            "hi": self.hi if self.count else 0.0,
+        }
+
+    def merge_sparse(self, payload: Mapping) -> None:
+        """Merge one sink datagram's partial histogram. Bucket counts add;
+        lo/hi merge idempotently (every chunk of a split histogram repeats
+        them); `sum` adds (a chunked send carries it on one chunk only)."""
+        added = 0
+        for k, c in dict(payload.get("b", {})).items():
+            i = int(k)
+            if 0 <= i < self.NBUCKETS:
+                c = int(c)
+                self.counts[i] += c
+                added += c
+        self.count += added
+        self.sum += float(payload.get("sum", 0.0))
+        if added:
+            self.lo = min(self.lo, float(payload.get("lo", math.inf)))
+            self.hi = max(self.hi, float(payload.get("hi", -math.inf)))
 
     def merge(self, other: "LogHistogram") -> None:
         for i, c in enumerate(other.counts):

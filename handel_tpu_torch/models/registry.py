@@ -1,0 +1,85 @@
+"""String -> signature-scheme dispatch — a copy of handel_tpu/models/registry.py.
+
+Reference: simul/lib/config.go:211-225 (`Config.NewConstructor`). The names
+select both keygen and the verify path; the device schemes verify on the
+port's engine (models/bn254_torch.py), on the card unless the caller passes
+`device="cpu"`.
+
+One table holds every alias: canonical name -> (is_device, factory), so a
+new alias cannot miss the batch-size plumbing in sim/node.py.
+
+The port's device scheme is `bn254-cuda` (alias `bn256-cuda`). The JAX
+package's device names `bn254-jax`, `bn254-tpu` and `bn256-tpu` select the
+same scheme here, so that the repo's `results/*_device.toml` configs run
+unchanged. The BLS12-381 and EdDSA names are known but not ported yet: they
+raise a ValueError that names their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+
+def _fake(**kw):
+    from handel_tpu_torch.models.fake import FakeScheme
+
+    return FakeScheme()
+
+
+def _bn254(**kw):
+    from handel_tpu_torch.models.bn254 import BN254Scheme
+
+    return BN254Scheme()
+
+
+def _bn254_cuda(**kw):
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+
+    return BN254TorchScheme(**kw)
+
+
+def _not_ported(what: str, item: int):
+    def factory(**kw):
+        raise ValueError(
+            f"{what} is not ported to handel_tpu_torch yet (ROADMAP item {item})"
+        )
+
+    return factory
+
+
+_bls12_381 = _not_ported("BLS12-381", 6)
+_eddsa = _not_ported("EdDSA", 9)
+
+# alias -> (is_device_scheme, factory)
+_TABLE = {
+    "fake": (False, _fake),
+    "empty": (False, _fake),
+    "bn254": (False, _bn254),
+    "bn256": (False, _bn254),
+    "bn254-ref": (False, _bn254),
+    "bn254-cuda": (True, _bn254_cuda),
+    "bn256-cuda": (True, _bn254_cuda),
+    "bn254-jax": (True, _bn254_cuda),
+    "bn254-tpu": (True, _bn254_cuda),
+    "bn256-tpu": (True, _bn254_cuda),
+    "eddsa": (False, _eddsa),
+    "ed25519": (False, _eddsa),
+    "bls12-381": (False, _bls12_381),
+    "bls12381": (False, _bls12_381),
+    "bls12-381-cuda": (True, _bls12_381),
+    "bls12-381-jax": (True, _bls12_381),
+    "bls12-381-tpu": (True, _bls12_381),
+    "bls12381-jax": (True, _bls12_381),
+}
+
+
+def new_scheme(name: str, **kwargs):
+    entry = _TABLE.get(name.lower())
+    if entry is None:
+        raise ValueError(f"unknown signature scheme: {name!r}")
+    return entry[1](**kwargs)
+
+
+def is_device_scheme(name: str) -> bool:
+    """True when `name` selects a device-verification scheme (one whose
+    constructor accepts batch_size and exposes a Device class)."""
+    entry = _TABLE.get(name.lower())
+    return bool(entry and entry[0])

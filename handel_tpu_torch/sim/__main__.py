@@ -1,0 +1,64 @@
+"""Simulation orchestrator CLI — the base run of handel_tpu/sim/__main__.py.
+
+Reference: simul/main.go:24-68 — load the TOML config, run each RunConfig
+in order on the chosen platform, abort a run after MaxTimeout.
+
+Usage: python -m handel_tpu_torch.sim --config sim.toml --workdir out/
+
+The node processes run their device scheme on the card unless
+HANDEL_TORCH_DEVICE=cpu (utils/torchenv.py). The reference's subcommands
+are not ported yet: each exits non-zero naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import sys
+
+from handel_tpu_torch.sim.config import load_config
+from handel_tpu_torch.sim.platform import run_simulation
+
+#: subcommand -> ROADMAP item that ports it
+NOT_PORTED = {
+    "trace": "4 (6g, sim/trace_cli.py)",
+    "watch": "8 (sim/watch_cli.py)",
+    "serve": "8 (service/driver.py run_service)",
+    "swarm": "8 (swarm/)",
+    "soak": "8 (sim/soak.py)",
+    "load": "8 (sim/load.py)",
+    "scenario": "8 (scenario/)",
+    "confgen": "4 (sim/confgen.py)",
+}
+
+
+def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] in NOT_PORTED:
+        sub = sys.argv[1]
+        print(
+            f"python -m handel_tpu_torch.sim {sub}: not ported yet "
+            f"(ROADMAP item {NOT_PORTED[sub]})",
+            file=sys.stderr,
+        )
+        return 2
+    ap = argparse.ArgumentParser(prog="python -m handel_tpu_torch.sim")
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--workdir", default="sim_out")
+    # platform dispatch (simul/main.go -platform flag)
+    ap.add_argument("--platform", default="localhost")
+    args = ap.parse_args()
+    cfg = load_config(args.config)
+    results = asyncio.run(run_simulation(cfg, args.workdir, platform=args.platform))
+    ok = all(r.ok for r in results)
+    for i, r in enumerate(results):
+        status = "success" if r.ok else "FAILED"
+        print(f"run {i}: {status} -> {r.csv_path}")
+        if not r.ok:
+            for out, err in r.outputs:
+                if err:
+                    sys.stderr.write(err.decode(errors="replace"))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,13 +5,20 @@ card (`cuda`); the CPU is used only when the caller names it, as the tests
 do. Asking for `cuda` where there is none raises: the port never slips onto
 the CPU behind the caller's back, because a number measured there would be
 read as a device number.
+
+The sim's processes take no argument for it: they read `HANDEL_TORCH_DEVICE`
+(`cuda` or `cpu`; unset means `cuda`) through `device_from_env`, the
+counterpart of the reference's `HANDEL_TPU_PLATFORM`.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
+DEVICE_ENV = "HANDEL_TORCH_DEVICE"
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -31,3 +38,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type {dev.type!r}: 'cuda' or 'cpu'")
     return dev
+
+
+def device_from_env() -> torch.device:
+    """The device named by $HANDEL_TORCH_DEVICE, else `cuda`, through
+    `resolve_device`: unset on a host without a card, it raises."""
+    return resolve_device(os.environ.get(DEVICE_ENV) or None)

@@ -499,3 +499,46 @@ def test_bn254_plane_on_the_card(card):
             svc.stop()
 
     assert asyncio.run(go()) == want[:4]
+
+
+def test_sim_entry_point_runs_bn254_cuda_on_the_card(card, tmp_path):
+    """python -m handel_tpu_torch.sim on a 16-node bn254-cuda config (two
+    node processes, UDP, one shared verifier each, 16 lanes): every node
+    finishes OK with a final that verifies, the shared verifiers launched,
+    and kernel B1 ran in each node process."""
+    import csv
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from handel_tpu_torch.sim.config import RunConfig, SimConfig, dump_config
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = SimConfig(network="udp", scheme="bn254-cuda", shared_verifier=True,
+                    batch_size=16, max_timeout_s=300.0,
+                    runs=[RunConfig(nodes=16, threshold=12, processes=2)])
+    (tmp_path / "sim.toml").write_text(dump_config(cfg))
+    env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
+               PYTHONPATH=os.pathsep.join([str(root), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-m", "handel_tpu_torch.sim", "--config", str(tmp_path / "sim.toml"),
+         "--workdir", str(tmp_path)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    with open(tmp_path / "results_0.csv") as f:
+        header, row = list(csv.reader(f))[:2]
+    col = dict(zip(header, map(float, row)))
+    assert col["device_verifier_verifierLaunches_sum"] >= 2
+    assert col["device_verifier_verifierCandidates_sum"] > 0
+    assert col["device_verifier_failoverBatches_sum"] == 0
+    for p in range(2):
+        text = (tmp_path / f"node_0_{p}.out").read_text()
+        assert "node process finished OK" in text
+        (kern,) = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+                   if ln.startswith("node process kernels: ")]
+        assert kern["device"].startswith("cuda")
+        assert kern["launches_in_round"]["fp_mont_mul"] > 0
+        assert kern["verifier_launches"] >= 1

@@ -314,14 +314,15 @@ def test_port_scheme_wires_the_combine_shim():
     assert h.combine_shim.device_combine([[None, None]]) is None
 
 
-@pytest.mark.parametrize("n, launches, device_groups", [(4, 8, 0), (6, 12, 4), (8, 24, 8)])
+@pytest.mark.parametrize("n, launches, device_groups",
+                         [(4, 8, 0), (5, 9, 1), (6, 12, 4), (8, 24, 8)])
 def test_per_node_round_sizes(n, launches, device_groups):
     """The per-node round's shape by committee size (chip_smoke.py phase 7
     runs ROUND_NODES of them at 128 lanes): BN254 keys and packets, a
     verifier that accepts every candidate, and a device combine folding on
     the host. Its verify launches (128-lane chunks) and the merge groups
     that reach the device combine (4 points or more) are fixed by the
-    protocol: at 4 nodes no group reaches the device, so phase 7 needs 6."""
+    protocol: at 4 nodes no group reaches the device, so phase 7 needs 5."""
     from handel_tpu_torch.models.bn254 import BN254Scheme
     from handel_tpu_torch.ops import bn254_ref as bn
 
