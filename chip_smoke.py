@@ -96,7 +96,7 @@ Phases, one line each, any failure exits non-zero with no result line:
               load), launches, fill, host pack and dispatch ms per launch,
               the seconds in which a dispatch and a fetch were in flight
               together, peak memory, B1's calls by column count.
-     round    a 32-node Handel round on BN254TorchScheme(batch_size=128),
+     round    a 16-node Handel round on BN254TorchScheme(batch_size=128),
               cios, every node verifying through one service over the
               prepared engine (Config.verifier = service.verify, with
               InfiniteTimeout and random.Random(1 + i)), phase 7's forgery
@@ -110,10 +110,11 @@ Phases, one line each, any failure exits non-zero with no result line:
               closed at the end; an exception out of a lane's dispatch or
               fetch or out of device_combine fails the run at once.
               The rounds were 128 nodes until phase 9 took over the
-              128-node service path at full width; 32 is the smallest case
-              of the CPU parity test that holds this round to the JAX
-              package's (tests/test_torch_service_engine.py), and it keeps
-              the script inside its time limit.
+              128-node service path at full width, then 32 until phase 10
+              came; 16 is the smallest case of the CPU parity test that
+              holds this round to the JAX package's
+              (tests/test_torch_service_engine.py), and it keeps the script
+              inside its time limit.
   9. sim      the port's entry point as a user runs it, in a subprocess with
               a time limit: python -m handel_tpu_torch.sim --config
               <tmp>/sim.toml --workdir <tmp>, where sim.toml is the repo's
@@ -135,12 +136,39 @@ Phases, one line each, any failure exits non-zero with no result line:
               launches, peak device memory, B1 launches and seconds in
               device combines (from its `node process kernels` line).
 
-Each path of phases 4, 6, 7 and 8 is one main-path run: every kernel's launch
-count is set to 0 just before it and read just after; phase 9's counts are
-the node processes' own, which start at 0. Then one JSON line of kernel
-figures, the seconds each phase took (`phases`), the total, the nvidia-smi
-line again, and last {"ok": true, "device": {...}}. Exits non-zero without a
-CUDA device.
+ 10. rlc      the RLC batch check (batch_check="rlc", models/rlc.py) and the
+              mixed-message launch (dispatch_multi) at 4096 keys and 128
+              lanes, on RLC engines (BN254Device(bank=...)) over phase 4's
+              registry banks and prefix tables, each launch's scalars from a
+              seeded random.Random: (a) one honest range launch of 128
+              candidates and (b) one honest dense launch of 126, one message
+              each: every verdict True, one combined check, 2 Miller lanes
+              and 1 final exponentiation, B1 launched and B2, B3a, B3b not;
+              (c) one BatchVerifierService(fallback=None) over the RLC
+              engine, four sessions of 32 range candidates on four messages:
+              one launch, fill 1.0, G = 4 groups (5 Miller lanes),
+              rlcLaunches 1, no failover, retry or open breaker; (d) a
+              forged pair (one candidate signed over another message):
+              verdicts [True, False], bisection 2 and depth 1, two
+              per-candidate oracle launches beside the combined one; (e)
+              one per-candidate dispatch_multi launch of 128 lanes over four
+              messages on phase 4's engine, with phase 4's forged lanes: the
+              verdicts known by construction, one multi-message launch; (f)
+              one honest RLC range launch on the rns backend: B2 launched,
+              B1 not (its MSMs run on the rns field, as in the reference).
+              Each case prints its wall, host pack and dispatch ms per
+              launch, RlcStats, launches and B1's and B2's calls by column
+              count; the summary line its peak memory, each wall over
+              phase 4's per-candidate p50 of the same class and backend, and
+              each cios case's wall over case (e)'s, the per-candidate launch
+              of the same phase.
+
+Each path of phases 4, 6, 7, 8 and 10 is one main-path run: every kernel's
+launch count is set to 0 just before it and read just after; phase 9's
+counts are the node processes' own, which start at 0. Then one JSON line of
+kernel figures, the seconds each phase took (`phases`), the total, the
+nvidia-smi line again, and last {"ok": true, "device": {...}}. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -177,7 +205,10 @@ ROUND_TIMEOUT_S = 600.0
 # phase 8: sessions of RANGE_CANDIDATES range candidates at once, and the
 # committee of the round through one service
 SERVICE_SESSIONS = 4
-SERVICE_ROUND_NODES = 32
+SERVICE_ROUND_NODES = 16
+# phase 10: the mixed-message service launch's sessions, each on its own
+# message, LANES / RLC_SESSIONS range candidates each
+RLC_SESSIONS = 4
 # phase 9: the repo's 128-node device config through the port's sim entry
 # point, with these changes (module docstring)
 SIM_CONFIG = "results/handel_128_device.toml"
@@ -688,19 +719,23 @@ def make_registry(n: int, rng: random.Random):
     return sks, [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
 
 
-def make_requests(kind: str, sks, count: int, rng: random.Random):
-    """`count` candidates of one launch class with the verdict each must get.
+def make_requests(kind: str, sks, count: int, rng: random.Random, msg: bytes = MSG,
+                  honest: bool = False):
+    """`count` candidates of one launch class on `msg` with the verdict each
+    must get.
 
     range: contiguous partitioner ranges of n/8, n/4 or n/2 keys with up to
     8 holes (bench.py build_problem); dense: random quarter subsets
-    (bench.py's dense phase). Lane 1 carries a wrong signature, lane 2 a
-    signature over another message, lane 3 an empty bitset."""
+    (bench.py's dense phase). Unless `honest`, lane 1 carries a wrong
+    signature, lane 2 a signature over another message, lane 3 an empty
+    bitset."""
     from handel_tpu_torch.core.bitset import BitSet
     from handel_tpu_torch.models.bn254 import BN254Signature, hash_to_g1
     from handel_tpu_torch.ops import bn254_ref as bn
 
     n = len(sks)
-    h, h_other = hash_to_g1(MSG), hash_to_g1(MSG + b" (other)")
+    h, h_other = hash_to_g1(msg), hash_to_g1(msg + b" (other)")
+    forged = () if honest else (1, 2, 3)
     requests, expect = [], []
     for j in range(count):
         if kind == "range":
@@ -710,15 +745,16 @@ def make_requests(kind: str, sks, count: int, rng: random.Random):
             signers = [i for i in range(lo, lo + size) if i not in holes]
         else:
             signers = rng.sample(range(n), n // 4)
-        if j == 3:
+        lane = j if j in forged else None
+        if lane == 3:
             signers = []
         bs = BitSet(n)
         for i in signers:
             bs.set(i, True)
         agg = sum(sks[i] for i in signers) % bn.R
-        point = bn.g1_mul(h_other if j == 2 else h, agg + (1 if j == 1 else 0))
+        point = bn.g1_mul(h_other if lane == 2 else h, agg + (1 if lane == 1 else 0))
         requests.append((bs, BN254Signature(point)))
-        expect.append(j not in (1, 2, 3))
+        expect.append(j not in forged)
     return requests, expect
 
 
@@ -811,8 +847,8 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
     """One main-path run of a verify path: prepare (registry commit, warmup
     and prefix table), then every kernel count set to 0, the range and dense
     launches with their verdicts checked, the counts read; then the timed
-    launches, whose walls join the main-path launch's. Returns {kernel:
-    launches in the main-path run}."""
+    launches, whose walls join the main-path launch's. Returns ({kernel:
+    launches in the main-path run}, {launch class: p50 wall ms})."""
     import torch
 
     dev = cons.curves.device
@@ -861,7 +897,7 @@ def verify_path(label, cons, pks, reqs, counters, expect_launch, expect_idle, co
     line("memory", path=label, max_memory_allocated=peak, launches=launches,
          conversion_counts=conv)
     line("widths", path=label, launches_by_cols=widths)
-    return launches
+    return launches, {kind: statistics.median(w) for kind, w in walls.items()}
 
 
 def round_phase(dev, counters) -> dict:
@@ -1004,10 +1040,14 @@ def round_phase(dev, counters) -> dict:
 
 
 class LaneCalls:
-    """Wraps an engine's `dispatch` and `fetch` (which a service calls on
-    worker threads) to record each call's start and end, and the first
-    exception either raises; `on_error` then runs on the event loop.
-    `restore()` puts the engine's own methods back."""
+    """Wraps the engine calls a service makes on worker threads — its
+    `dispatch_multi` (the service's launch entry when the engine has it)
+    and `fetch` — to record each call's start and end, under "dispatch"
+    and "fetch", and the first exception either raises; `on_error` then
+    runs on the event loop. `restore()` puts the engine's own methods
+    back."""
+
+    ENTRIES = {"dispatch": "dispatch_multi", "fetch": "fetch"}
 
     def __init__(self, engine, on_error=None):
         import threading
@@ -1017,8 +1057,8 @@ class LaneCalls:
         self.failures: list[BaseException] = []
         self.loop = None
         self._lock = threading.Lock()
-        for name in self.spans:
-            setattr(engine, name, self._wrap(name, getattr(engine, name)))
+        for name, attr in self.ENTRIES.items():
+            setattr(engine, attr, self._wrap(name, getattr(engine, attr)))
 
     def _wrap(self, name, fn):
         def call(*args, **kw):
@@ -1037,8 +1077,8 @@ class LaneCalls:
         return call
 
     def restore(self) -> None:
-        for name in self.spans:
-            delattr(self.engine, name)
+        for attr in self.ENTRIES.values():
+            delattr(self.engine, attr)
 
     def overlap_s(self) -> float:
         """Seconds in which a dispatch and a fetch were in flight together."""
@@ -1406,6 +1446,199 @@ def sim_phase() -> dict:
     return fig
 
 
+class RlcCase:
+    """One case of phase 10 on one engine, as a context around its launch:
+    the wall from dispatch to verdicts, the engine's RLC counters and host
+    costs over the case (both zeroed at its start), the kernels' launches
+    and B1's and B2's calls by column count in it."""
+
+    def __init__(self, name, engine, counters, expect_launch):
+        self.name, self.engine, self.counters = name, engine, counters
+        self.expect_launch = expect_launch
+        self.fig: dict = {}
+
+    def __enter__(self):
+        self.engine.reset_host_counters()
+        self.multi0 = self.engine.multi_msg_launches
+        self.launches0 = {k: c.launches for k, c in self.counters.items()}
+        self.widths0 = {k: dict(getattr(c, "widths", {})) for k, c in self.counters.items()}
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is not None:
+            return False
+        eng = self.engine
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
+        launches = {k: c.launches - self.launches0[k] for k, c in self.counters.items()}
+        widths = {}
+        for k, c in self.counters.items():
+            moved = {cols: n - self.widths0[k].get(cols, 0)
+                     for cols, n in getattr(c, "widths", {}).items()
+                     if n != self.widths0[k].get(cols, 0)}
+            if moved:
+                widths[k] = {str(cols): n for cols, n in sorted(moved.items())}
+        st = eng.rlc_stats
+        per = lambda ms, n: ms / n if n else 0.0  # noqa: E731
+        self.fig = {
+            "case": self.name, "wall_ms": wall_ms,
+            "rlc_stats": {"rlc_launches": st.rlc_launches, "bisection_ct": st.bisection_ct,
+                          "bisection_depth_max": st.bisection_depth_max,
+                          "miller_lanes": st.miller_lanes, "final_exp_lanes": st.final_exp_lanes},
+            "engine_launches": eng.host_dispatch_launches,
+            "multi_msg_launches": eng.multi_msg_launches - self.multi0,
+            "host_pack_ms_per_launch": per(eng.host_pack_ms, eng.host_pack_launches),
+            "host_dispatch_ms_per_launch": per(eng.host_dispatch_ms, eng.host_dispatch_launches),
+            "kernel_launches": launches, "widths": widths,
+        }
+        return False
+
+    def check(self, got, expect, **want):
+        """Prints the case's line; then `expect_launch` must have launched
+        and no other kernel, and the verdicts and the figures named in
+        `want` (RlcStats fields or figure keys) must be as expected."""
+        fig = {**self.fig, **self.fig["rlc_stats"]}
+        line("rlc", **self.fig)
+        for k, n in fig["kernel_launches"].items():
+            if (k == self.expect_launch) != (n > 0):
+                raise AssertionError(f"rlc {self.name}: {k} launched {n} times")
+        if got != expect:
+            bad = [j for j, (g, e) in enumerate(zip(got, expect)) if g != e]
+            raise AssertionError(f"rlc {self.name}: verdicts wrong at lanes {bad}")
+        for key, value in want.items():
+            if fig[key] != value:
+                raise AssertionError(f"rlc {self.name}: {key} = {fig[key]}, expected {value}")
+
+
+def rlc_phase(cons, rcons, sks, pks, counters, prng, p50_ms) -> dict:
+    """Phase 10: the RLC batch check and mixed-message launches at 4096 keys
+    and 128 lanes (module docstring), on RLC engines that share phase 4's
+    registry banks and prefix tables. One main-path run: every count set to
+    0 before case (a) and read after case (f). Raises on any failed check;
+    returns the figures."""
+    import asyncio
+
+    import torch
+
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+
+    base, rbase = cons._device, rcons._device
+    dev = base.device
+    eng = BN254Device(bank=base.bank, batch_size=LANES, curves=cons.curves,
+                      batch_check="rlc", rlc_rng=random.Random(SEED))
+    range_reqs, range_expect = make_requests("range", sks, LANES, prng, honest=True)
+    dense_reqs, dense_expect = make_requests("dense", sks, DENSE_CANDIDATES, prng, honest=True)
+    for kind, reqs in (("range", range_reqs), ("dense", dense_reqs)):
+        if eng._pack_requests(reqs).kind != kind:
+            raise AssertionError(f"rlc: {kind} requests packed as another launch class")
+    per_session = LANES // RLC_SESSIONS
+    session_msgs = [MSG + b" session %d" % i for i in range(RLC_SESSIONS)]
+    sessions = [make_requests("range", sks, per_session, prng, msg=m, honest=True)
+                for m in session_msgs]
+    pair = [make_requests("range", sks, 1, prng, honest=True)[0][0],
+            make_requests("range", sks, 3, prng)[0][2]]  # signed over another message
+    mixed = [make_requests("range", sks, per_session, prng, msg=m) for m in session_msgs]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(counters)
+    t_phase = time.perf_counter()
+    cases = {}
+
+    # (a) and (b): one honest launch per class, one message
+    for name, reqs, expect in (("range", range_reqs, range_expect),
+                               ("dense", dense_reqs, dense_expect)):
+        with RlcCase(name, eng, counters, "fp_mont_mul") as case:
+            got = eng.fetch(eng.dispatch(MSG, reqs))
+        case.fig["candidates"] = len(reqs)
+        case.check(got, expect, rlc_launches=1, bisection_ct=0, miller_lanes=2,
+                   final_exp_lanes=1, engine_launches=1)
+        cases[name] = case.fig
+
+    # (c) four sessions, four messages, one service launch
+    calls = LaneCalls(eng)
+    svc = BatchVerifierService(eng, fallback=None)
+
+    async def serve():
+        calls.loop = asyncio.get_running_loop()
+        try:
+            return await asyncio.gather(*(
+                svc.verify(m, pks, reqs, session=f"s{i}")
+                for i, (m, (reqs, _)) in enumerate(zip(session_msgs, sessions))))
+        finally:
+            svc.stop()
+
+    try:
+        with RlcCase("service", eng, counters, "fp_mont_mul") as case:
+            got = asyncio.run(serve())
+    finally:
+        calls.restore()
+    values = svc.values()
+    case.fig.update(launches=values["verifierLaunches"], launch_fill=values["launchFillRatio"],
+                    rlcLaunches=values["rlcLaunches"],
+                    dispatch_s=[b - a for a, b in calls.spans["dispatch"]],
+                    fetch_s=[b - a for a, b in calls.spans["fetch"]])
+    case.check([v for vs in got for v in vs], [e for _, exp in sessions for e in exp],
+               rlc_launches=1, bisection_ct=0, miller_lanes=RLC_SESSIONS + 1, final_exp_lanes=1,
+               multi_msg_launches=1, launches=1.0, launch_fill=1.0, rlcLaunches=1.0)
+    service_checks("rlc service", values)
+    cases["service"] = case.fig
+
+    # (d) a forged pair: the combined check fails, bisection runs two oracles
+    with RlcCase("forged_pair", eng, counters, "fp_mont_mul") as case:
+        t0 = time.perf_counter()
+        handle = eng.dispatch(MSG, pair)
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+        got = eng.fetch(handle)
+    case.fig["combined_dispatch_ms"] = dispatch_ms
+    case.check(got, [True, False], rlc_launches=1, bisection_ct=2, bisection_depth_max=1,
+               engine_launches=3, miller_lanes=2)
+    cases["forged_pair"] = case.fig
+
+    # (e) 6b without RLC: one per-candidate launch over four messages
+    with RlcCase("multi_msg", base, counters, "fp_mont_mul") as case:
+        items = [(m, pks, bs, sig) for m, (reqs, _) in zip(session_msgs, mixed)
+                 for bs, sig in reqs]
+        got = base.fetch(base.dispatch_multi(items))
+    case.check(got, [e for _, exp in mixed for e in exp], multi_msg_launches=1,
+               engine_launches=1)
+    cases["multi_msg"] = case.fig
+
+    # (f) one honest RLC range launch on the rns backend
+    reng = BN254Device(bank=rbase.bank, batch_size=LANES, curves=rcons.curves,
+                       batch_check="rlc", rlc_rng=random.Random(SEED + 1))
+    with RlcCase("range_rns", reng, counters, "rns_mont_mul_resident") as case:
+        got = reng.fetch(reng.dispatch(MSG, range_reqs))
+    case.check(got, range_expect, rlc_launches=1, bisection_ct=0, miller_lanes=2,
+               final_exp_lanes=1, engine_launches=1)
+    cases["range_rns"] = case.fig
+
+    seconds = time.perf_counter() - t_phase
+    launches = {k: c.launches for k, c in counters.items()}
+    # each case's sum of B1's and B2's bounds over its calls, by width
+    bound = {"fp_mont_mul": lambda c: mont_mul_bound_ms(16, c)[0],
+             "rns_mont_mul_resident": lambda c: rns_bound_ms(rcons.curves.F, c)[0]}
+    for case in cases.values():
+        case["bound_ms"] = {k: sum(n * bound[k](int(cols)) for cols, n in w.items())
+                            for k, w in case["widths"].items()}
+    fig = {
+        "cases": cases, "seconds": seconds, "kernel_launches": launches,
+        "bound_ms_by_case": {name: c["bound_ms"] for name, c in cases.items()},
+        "widths": width_histograms(counters),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "per_candidate_p50_ms": p50_ms,
+        "wall_over_per_candidate_p50": {
+            name: cases[name]["wall_ms"] / p50_ms[key]
+            for name, key in (("range", "cios_range"), ("dense", "cios_dense"),
+                              ("range_rns", "rns_range"))},
+        "wall_over_case_e": {
+            name: cases[name]["wall_ms"] / cases["multi_msg"]["wall_ms"]
+            for name in ("range", "dense", "service", "forged_pair")},
+    }
+    line("rlc_summary", **{k: v for k, v in fig.items() if k != "cases"})
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -1514,13 +1747,14 @@ def main() -> int:
     counters = {"fp_mont_mul": mont_mul, "rns_mont_mul_resident": rns_mul_resident,
                 "lab_cios_fullwidth": lab_cios_fullwidth, "lab_separated": lab_separated}
     cons = BN254TorchScheme(batch_size=LANES, device=dev).constructor
-    cios = verify_path("cios", cons, pks, reqs, counters, "fp_mont_mul",
-                       ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"))
+    cios, cios_p50 = verify_path("cios", cons, pks, reqs, counters, "fp_mont_mul",
+                                 ("rns_mont_mul_resident", "lab_cios_fullwidth",
+                                  "lab_separated"))
     done("verify")
     rcons = BN254TorchScheme(batch_size=LANES, device=dev, fp_backend="rns").constructor
-    rns = verify_path("rns", rcons, pks, reqs, counters, "rns_mont_mul_resident",
-                      ("fp_mont_mul", "lab_cios_fullwidth", "lab_separated"),
-                      conv_field=rcons.curves.F)
+    rns, rns_p50 = verify_path("rns", rcons, pks, reqs, counters, "rns_mont_mul_resident",
+                               ("fp_mont_mul", "lab_cios_fullwidth", "lab_separated"),
+                               conv_field=rcons.curves.F)
     done("rns_verify")
     on_path = {
         "fp_mont_mul": profile_phase(cons, pks, reqs["range"][0], "mont_mul_kernel", "cios",
@@ -1545,11 +1779,25 @@ def main() -> int:
     torch.cuda.empty_cache()  # phase 9's node processes share the card
     sim = sim_phase()
     done("sim")
+    rlc = rlc_phase(cons, rcons, sks, pks, counters, prng, {
+        "cios_range": cios_p50["range"], "cios_dense": cios_p50["dense"],
+        "rns_range": rns_p50["range"]})
+    done("rlc")
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
         for key, f in (("load", load), ("round", srnd), ("round_rns", srnd_rns))
     }
+
+    def on_rlc(kname):
+        """The kernel's launches in phase 10, in all and by case, and its
+        calls by column count on each case that launched it."""
+        return {"launches": rlc["kernel_launches"][kname],
+                "by_case": {name: {"launches": c["kernel_launches"][kname],
+                                   "widths": c["widths"].get(kname, {}),
+                                   "bound_ms": c["bound_ms"].get(kname)}
+                            for name, c in rlc["cases"].items()
+                            if c["kernel_launches"][kname]}}
 
     def entry(kname, source, replaces, launches, widths, fig, **extra):
         return {
@@ -1572,14 +1820,16 @@ def main() -> int:
                         "widths": rnd["widths"]},
               on_service=on_service,
               on_sim={"launches": sim["b1_launches"],
-                      "launches_in_round": sim["b1_launches_in_round"]}),
+                      "launches_in_round": sim["b1_launches_in_round"]},
+              on_rlc=on_rlc("fp_mont_mul")),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],
               on_path_range_launch=on_path["rns_mont_mul_resident"],
               on_service={"round_rns": {
                   "launches": srnd_rns["kernel_launches"]["rns_mont_mul_resident"],
-                  "widths": srnd_rns["widths"].get("rns_mont_mul_resident", {})}}),
+                  "widths": srnd_rns["widths"].get("rns_mont_mul_resident", {})}},
+              on_rlc=on_rlc("rns_mont_mul_resident")),
         *(entry(kname, "handel_tpu_torch/csrc/lab_mont.cu", "scripts/fp_kernel_lab.py:234",
                 lab["executed"][kname], list(b3[kname].values()), b3[kname]["random+edges/16"],
                 captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])

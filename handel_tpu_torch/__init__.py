@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of handel_tpu: the Handel protocol core, the shared
 batch verifier, BLS-over-BN254 batch verification on the CIOS and the RNS
-field backends, and the sim's localhost run path.
+field backends, per candidate or by the RLC batch check, and the sim's
+localhost run path.
 
 The JAX package (`handel_tpu`) stays the reference. This package imports
 torch and numpy, never jax and nothing of `handel_tpu`; module names mirror
@@ -14,12 +15,16 @@ the reference so each counterpart is easy to find:
                          the residue-resident form, whose products run the
                          second CUDA kernel
   ops/tower.py           Fp2/Fp6/Fp12 with batch stacking
-  ops/curve.py           G1/G2 complete projective formulas, sums, scans
+  ops/curve.py           G1/G2 complete projective formulas, sums, scans,
+                         the windowed multi-scalar multiplication
   ops/pairing.py         batched optimal-ate pairing and pairing check
   models/bn254.py        host scheme: keys, sign, wire formats
   models/bn254_torch.py  BN254Device (range and dense launch classes, the
+                         RLC launch class, mixed-message launches, the
                          batched G1 combine), BN254TorchConstructor,
                          BN254TorchScheme
+  models/rlc.py          the RLC batch check: scalars, bisection, the
+                         host-math combined check
   models/fake.py         the fake scheme, for fast protocol tests
   models/registry.py     scheme names -> schemes (`bn254-cuda` verifies on
                          the engine; the JAX package's device names too)
@@ -42,8 +47,8 @@ the reference so each counterpart is easy to find:
   utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
                          (the sim's processes: $HANDEL_TORCH_DEVICE)
   utils/breaker.py       the circuit breaker of the service's device lanes
-  utils/opcount.py       kernel-launching ops per verify launch and per
-                         combine, on the CPU
+  utils/opcount.py       kernel-launching ops per verify launch (and RLC
+                         launch) and per combine, on the CPU
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

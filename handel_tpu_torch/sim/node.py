@@ -21,7 +21,9 @@ Cut from the reference, each raising NotImplementedError naming its ROADMAP
 item (`check_ported`): the metrics endpoint (`metrics`, `--metrics-port`),
 span tracing, the comparison baselines, adversaries, chaos, the geo model,
 stake weights, the TLS transport, the verifier RPC (`--verifier`,
-`--serve-verifier`), a mesh wider than one device and the RLC batch check.
+`--serve-verifier`) and a mesh wider than one device. The node ignores
+`[service]`, as the reference's does: its `batch_check` is for the `serve`
+and `load` paths, and a node's verifier checks per candidate.
 
 Beyond the reference: a device-scheme process prints one `node process
 kernels:` line (JSON) before `finished OK`: its kernel launch counts, over
@@ -78,7 +80,6 @@ def check_ported(cfg: SimConfig, args=None) -> None:
         (getattr(args, "metrics_port", -1) >= 0,
          "--metrics-port (core/metrics.py)", "4"),
         (cfg.mesh_devices > 1, f"mesh_devices = {cfg.mesh_devices}", "7"),
-        (cfg.service.batch_check == "rlc", 'batch_check = "rlc"', "5"),
     ]
     for on, what, item in parts:
         if on:

@@ -1,18 +1,25 @@
 """Count the kernel-launching torch ops of one verify launch, on the CPU.
 
     python -m handel_tpu_torch.utils.opcount [--registry 64] [--lanes 4] [--combine-lanes 128]
+        [--rlc-lanes 128]
 
 Runs one range launch per field backend ("cios", then "rns") through
 `BN254TorchScheme(device="cpu")` under a `TorchDispatchMode` that counts
 every dispatched op except views (which launch nothing on a card), with
 each kernel wrapper's plain version counted as one op, as the card runs it
-as one kernel. The count does not depend on the batch width, so it predicts
-a card's device-activity count per launch at any width; it is a count, not
-a device measurement. `scopes` attributes the ops issued inside the per-mul
-`RnsField.mul` and inside `Field.inv` (the affine conversion's Fermat
-inverse) on top of the total. Prints one JSON line per backend, then one
-per backend for a `combine_batch` chunk at `--combine-lanes` lanes computed
-on that backend's field.
+as one kernel. The per-candidate count does not depend on the batch width,
+so it predicts a card's device-activity count per launch at any width; it
+is a count, not a device measurement. An RLC launch's count does: its MSMs'
+masked sums over the C candidate blocks take ceil(log2 C) tree stages a
+window, so it is counted at the card's width, `--rlc-lanes`. `scopes`
+attributes the ops issued inside the per-mul `RnsField.mul`, inside
+`Field.inv` (the affine conversion's Fermat inverse), inside `Curve.msm`
+and inside the RLC pairing tail (`BN254Device._rlc_check`) on top of the
+total. Prints one JSON line per
+backend, then one per backend for a `combine_batch` chunk at
+`--combine-lanes` lanes computed on that backend's field, then one per
+backend for an honest RLC range launch of `--rlc-lanes` candidates
+(`batch_check="rlc"`, one message).
 """
 
 from __future__ import annotations
@@ -61,12 +68,15 @@ def _counted(run):
     counted as one op (the card runs it as one kernel, `kernel` in the
     counts), with the per-mul `RnsField.mul` and `Field.inv` scoped.
     Returns (counter, result)."""
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+    from handel_tpu_torch.ops.curve import Curve
     from handel_tpu_torch.ops.fp import Field
     from handel_tpu_torch.ops.rns import RnsField
 
     counter = OpCounter()
     plain = {(Field, "_mul_plain"), (RnsField, "_mul_resident_core")}
-    scoped = {(RnsField, "mul"): "rns_per_mul", (Field, "inv"): "field_inv"}
+    scoped = {(RnsField, "mul"): "rns_per_mul", (Field, "inv"): "field_inv",
+              (Curve, "msm"): "msm", (BN254Device, "_rlc_check"): "rlc_pairing_tail"}
     saved = {key: getattr(*key) for key in [*plain, *scoped]}
 
     def as_one_kernel(fn):
@@ -80,10 +90,10 @@ def _counted(run):
         return wrapped
 
     def in_scope(fn, scope):
-        def wrapped(*args):
+        def wrapped(*args, **kw):
             counter.open.append(scope)
             try:
-                return fn(*args)
+                return fn(*args, **kw)
             finally:
                 counter.open.pop()
         return wrapped
@@ -101,10 +111,11 @@ def _counted(run):
     return counter, result
 
 
-def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> dict:
+def _range_problem(registry: int, lanes: int, seed: int):
+    """Seeded registry keys, message and `lanes` honest range candidates of
+    registry/4 contiguous signers each."""
     from handel_tpu_torch.core.bitset import BitSet
     from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
-    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
     from handel_tpu_torch.ops import bn254_ref as bn
 
     rng = random.Random(seed)
@@ -120,18 +131,48 @@ def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -
         for i in idx:
             bs.set(i, True)
         requests.append((bs, BN254Signature(bn.g1_mul(h, sum(sks[i] for i in idx) % bn.R))))
+    return pks, msg, requests
+
+
+def _top(counter) -> dict:
+    top = sorted(
+        ((k, v) for k, v in counter.counts.items() if k not in VIEW_OPS), key=lambda kv: -kv[1]
+    )[:10]
+    return dict(top)
+
+
+def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> dict:
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+
+    pks, msg, requests = _range_problem(registry, lanes, seed)
     cons = BN254TorchScheme(batch_size=lanes, device="cpu", fp_backend=backend).constructor
     cons.prepare(pks)
     counter, verdicts = _counted(lambda: cons.batch_verify(msg, pks, requests))
     if not all(verdicts):
         raise AssertionError(f"{backend}: a valid candidate was rejected")
-    top = sorted(
-        ((k, v) for k, v in counter.counts.items() if k not in VIEW_OPS), key=lambda kv: -kv[1]
-    )[:10]
     return {"backend": backend, "launch_class": "range", "lanes": lanes,
             "registry": registry, "kernel_launching_ops": counter.launches(),
             "kernel_calls": counter.counts["kernel"], "scopes": dict(counter.scopes),
-            "top": dict(top)}
+            "top": _top(counter)}
+
+
+def count_rlc_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> dict:
+    """The kernel-launching ops of one honest RLC range launch of `lanes`
+    candidates on one message: a combined check that passes, no bisection
+    (the prefix table is built before the count)."""
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+
+    pks, msg, requests = _range_problem(registry, lanes, seed)
+    eng = BN254Device(pks, batch_size=lanes, device="cpu", fp_backend=backend,
+                      batch_check="rlc", rlc_rng=random.Random(seed))
+    _ = eng._prefix
+    counter, verdicts = _counted(lambda: eng.fetch(eng.dispatch(msg, requests)))
+    if not all(verdicts) or eng.rlc_stats.bisection_ct:
+        raise AssertionError(f"{backend}: the honest RLC launch failed its combined check")
+    return {"backend": backend, "launch_class": "rlc range", "lanes": lanes,
+            "registry": registry, "kernel_launching_ops": counter.launches(),
+            "kernel_calls": counter.counts["kernel"], "scopes": dict(counter.scopes),
+            "top": _top(counter)}
 
 
 def count_combine(backend: str, lanes: int, k: int = 4, seed: int = 1) -> dict:
@@ -161,12 +202,15 @@ def main() -> None:
     ap.add_argument("--registry", type=int, default=64)
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--combine-lanes", type=int, default=128)
+    ap.add_argument("--rlc-lanes", type=int, default=128)
     args = ap.parse_args()
     torch.set_num_threads(1)
     for backend in ("cios", "rns"):
         print(json.dumps(count_range_launch(backend, args.registry, args.lanes)), flush=True)
     for backend in ("cios", "rns"):
         print(json.dumps(count_combine(backend, args.combine_lanes)), flush=True)
+    for backend in ("cios", "rns"):
+        print(json.dumps(count_rlc_launch(backend, args.registry, args.rlc_lanes)), flush=True)
 
 
 if __name__ == "__main__":

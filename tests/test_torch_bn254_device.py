@@ -246,9 +246,11 @@ def test_scheme_surface(registry):
     assert cons.signature_size() == 64
     assert cons.unmarshal_signature(sig.marshal()).point == sig.point
     assert pk.verify(MSG, sig) and not pk.verify(b"other", sig)
-    with pytest.raises(NotImplementedError):
-        BN254TorchScheme(batch_check="rlc", device="cpu")
-    with pytest.raises(ValueError):
+    rcons = BN254TorchScheme(batch_size=C, device="cpu", warmup=False, batch_check="rlc").constructor
+    assert rcons.batch_check == "rlc"
+    rdev = rcons.prepare(pks)
+    assert rdev.batch_check == "rlc" and rdev.rlc_stats.rlc_launches == 0
+    with pytest.raises(ValueError, match="per_candidate.*rlc"):
         BN254TorchScheme(batch_check="bogus", device="cpu")
 
 

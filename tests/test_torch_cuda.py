@@ -250,6 +250,93 @@ def test_rns_verify_on_card(card):
     assert rns_mul_resident.launches > b2 and mont_mul.launches == b1
 
 
+@pytest.mark.parametrize("backend", ["cios", "rns"])
+def test_rlc_launch_on_card_equals_cpu(card, backend):
+    """An RLC launch on the card (two messages, one forged candidate, range
+    class) gives the CPU engine's verdicts and counters, with the same
+    scalars the same (S, X) from its MSM stage; the bisection's relaunches
+    run on the engine's verify stream under its dispatch lock. B1 launches
+    on cios, B2 on rns."""
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+
+    rng = random.Random(9)
+    n = 40
+    sks = [rng.randrange(1, 1 << 30) for _ in range(n)]
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+
+    def cand(msg, idx, forge=False):
+        bs = BitSet(n)
+        for i in idx:
+            bs.set(i, True)
+        k = (sum(sks[i] for i in idx) + forge) % bn.R
+        return (msg, None, bs, BN254Signature(bn.g1_mul(hash_to_g1(msg), k)))
+
+    items = [cand(b"m1", range(3, 20)), cand(b"m2", range(5, 9), forge=True),
+             cand(b"m2", [7, 9, 11]), cand(b"m1", range(30, 40))]
+    engines = {d: BN254Device(pks, batch_size=4, device=d, fp_backend=backend,
+                              batch_check="rlc", rlc_rng=random.Random(5))
+               for d in ("cpu", card)}
+    outs, streams = {d: [] for d in engines}, []
+    for d, eng in engines.items():
+        def tap(*a, _t=eng._rlc_msm_tail, _d=d):
+            outs[_d].append(_t(*a))
+            return outs[_d][-1]
+
+        eng._rlc_msm_tail = tap
+        if d != "cpu":
+            one = eng._dispatch_one
+
+            def watched(*a, _one=one, _eng=eng):
+                streams.append((torch.cuda.current_stream(card) == _eng._verify_stream,
+                                _eng._dispatch_lock.locked()))
+                return _one(*a)
+
+            eng._dispatch_one = watched
+    b1, b2 = mont_mul.launches, rns_mul_resident.launches
+    got = {d: eng.fetch(eng.dispatch_multi(items)) for d, eng in engines.items()}
+    assert got["cpu"] == got[card] == [True, False, True, True]
+    stats = {d: eng.rlc_stats for d, eng in engines.items()}
+    assert stats["cpu"] == stats[card] and stats[card].bisection_ct > 0
+    assert streams and all(on_stream and locked for on_stream, locked in streams)
+    flat = lambda o: [t.cpu() for t in torch.utils._pytree.tree_leaves(o)]  # noqa: E731
+    assert len(outs["cpu"]) == len(outs[card]) == 3  # the top check and two halves
+    assert all(torch.equal(a, b) for a, b in zip(flat(outs["cpu"]), flat(outs[card])))
+    if backend == "cios":
+        assert mont_mul.launches > b1 and rns_mul_resident.launches == b2
+    else:
+        assert rns_mul_resident.launches > b2 and mont_mul.launches == b1
+
+
+def test_per_candidate_dispatch_multi_on_card(card):
+    """A mixed-message per-candidate launch on the card: per-lane H(m)
+    columns, the verdicts of one launch per message."""
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+
+    rng = random.Random(10)
+    n = 24
+    sks = [rng.randrange(1, 1 << 30) for _ in range(n)]
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+    dev = BN254Device(pks, batch_size=4, device=card)
+
+    def cand(msg, idx, forge=False):
+        bs = BitSet(n)
+        for i in idx:
+            bs.set(i, True)
+        k = (sum(sks[i] for i in idx) + forge) % bn.R
+        return (msg, None, bs, BN254Signature(bn.g1_mul(hash_to_g1(msg), k)))
+
+    items = [cand(b"m1", range(0, 5)), cand(b"m2", range(4, 9), forge=True),
+             cand(b"m2", range(2, 6)), cand(b"m3", [1, 3])]
+    assert dev.fetch(dev.dispatch_multi(items)) == [True, False, True, True]
+    assert dev.multi_msg_launches == 1
+
+
 LAB_FORMS = ("cios_fullwidth", "separated")
 
 

@@ -768,15 +768,29 @@ def test_host_device_verdicts_honest():
 
 
 def test_host_device_epoch_flip_and_rlc_refused():
+    """The epoch flip choreography, and RLC mode refused by a scheme with no
+    RLC ops table (the fake scheme): the device stays per-candidate, as the
+    reference's does. BN254's RLC mode: tests/test_torch_rlc.py."""
     def scenario(pkg):
         dev = pkg.HostDevice(pkg.FakeScheme().constructor)
         with pytest.raises(RuntimeError, match="no staged registry"):
             dev.activate_staged()
-        return dev.stage_registry([1, 2, 3]), dev.activate_staged(), dev.registry_stagings
+        flip = dev.stage_registry([1, 2, 3]), dev.activate_staged(), dev.registry_stagings
+        rdev = pkg.HostDevice(pkg.FakeScheme().constructor, batch_check="rlc")
+        pks = [pkg.fake.FakePublic(True) for _ in range(4)]
+        bs = pkg.BitSet(4)
+        bs.set(2, True)
+        verdicts = rdev.fetch(rdev.dispatch_multi([
+            (b"m1", pks, bs, pkg.fake.FakeSignature(True)),
+            (b"m2", pks, bs, pkg.fake.FakeSignature(False)),
+        ]))
+        st = rdev.rlc_stats
+        return (flip, rdev.batch_check, rdev._rlc_ops is None, verdicts,
+                (st.rlc_launches, st.miller_lanes, st.final_exp_lanes))
 
-    assert both(scenario) == (3, 1, 1)
-    with pytest.raises(NotImplementedError, match="rlc"):
-        HostDevice(FakeScheme().constructor, batch_check="rlc")
+    assert both(scenario) == ((3, 1, 1), "rlc", True, [True, False], (0, 4, 2))
+    with pytest.raises(ValueError, match="per_candidate.*rlc"):
+        HostDevice(FakeScheme().constructor, batch_check="bogus")
 
 
 # -- the whole service against the reference's --------------------------------

@@ -268,7 +268,7 @@ def round_config(cfg_cls, timeout_cls, service, seed):
     return factory
 
 
-@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
 def test_round_through_one_service_beside_reference(n):
     """n nodes of the fake scheme through one service over a HostDevice:
     complete success with fewer launches than nodes, in the port's harness

@@ -507,7 +507,6 @@ UNPORTED = {
     "serve_verifier": (lambda c, a: setattr(a, "serve_verifier", 9), "4"),
     "metrics_port": (lambda c, a: setattr(a, "metrics_port", 9100), "4"),
     "mesh_devices": (lambda c, a: setattr(c, "mesh_devices", 4), "7"),
-    "rlc": (lambda c, a: setattr(c.service, "batch_check", "rlc"), "5"),
 }
 
 
@@ -518,6 +517,28 @@ def test_each_unported_option_raises_naming_its_roadmap_item(part):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         check_ported(cfg, args)
     check_ported(pconfig.SimConfig(runs=[pconfig.RunConfig()]), Args())  # the base run passes
+
+
+def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_path):
+    """A config with `[service] batch_check = "rlc"` runs: the node ignores
+    `[service]` (the reference's node builds its verifier without it), the
+    config dumps to the same text in both packages, and the scheme the node
+    builds checks per candidate."""
+    cfg, args = unported(lambda c, a: None)
+    cfg.scheme = "bn254-cuda"
+    cfg.service.sessions = 2  # [service] dumps only with sessions
+    cfg.service.batch_check = "rlc"
+    check_ported(cfg, args)
+    text = pconfig.dump_config(cfg)
+    assert 'batch_check = "rlc"' in text
+    path = tmp_path / "rlc.toml"
+    path.write_text(text)
+    assert rconfig.dump_config(rconfig.load_config(str(path))) == text
+    assert pconfig.dump_config(pconfig.load_config(str(path))) == text
+    # the node's scheme, built as sim/node.py builds it
+    scheme = preg.new_scheme(cfg.scheme, batch_size=cfg.batch_size, fp_backend=cfg.fp_backend,
+                             rns_resident=None, device="cpu")
+    assert scheme.constructor.batch_check == "per_candidate"
 
 
 @pytest.mark.parametrize(
