@@ -21,13 +21,17 @@ Phases, one line each, any failure exits non-zero with no result line:
               for BN254 (16 limbs) and BLS12-381 (24 limbs): 2^20 seeded
               random columns plus edge columns, and the widths the verify
               path gives it (an Fp12 multiply at 128 lanes; the widest
-              stacked G2 add of the dense class); kernel and plain times,
-              and the device time of each lanes-per-column instance
+              stacked G2 add of the dense class), and at 24 limbs phase
+              11's (BLS_B1_WIDTHS: its Fp12 multiply at 64 lanes, its
+              widest dense add, 64 and 1,152 columns); kernel and plain
+              times, and the device time of each lanes-per-column instance
      rns_kernel  kernel B2, the resident RNS Montgomery multiply
               (RnsField.mul_resident on CUDA tensors), against its plain
               version, exact equality, for BN254 (k_all 46) and BLS12-381
               (k_all 65): 2^20 + 16 random residue columns with 0 and m_i - 1
-              first, and an Fp12 multiply at 128 lanes; the integer identity
+              first, an Fp12 multiply at 128 lanes, and at k_all 65 phase
+              11's widths (BLS_B2_WIDTHS: 6,912, 768, 64 and 1,152 columns);
+              the integer identity
               x y M^-1 mod p through the resident conversions on a prefix;
               the device time of each tile width
      lab_kernel  kernels B3a and B3b, the kernel lab's two formulations of
@@ -162,8 +166,28 @@ Phases, one line each, any failure exits non-zero with no result line:
               phase 4's per-candidate p50 of the same class and backend, and
               each cios case's wall over case (e)'s, the per-candidate launch
               of the same phase.
+ 11. bls12_381  the BLS12-381 family through new_scheme("bls12-381-cuda") at
+              the repo's shape for it (scripts/bench_bls12.py): a 1024-key
+              registry from small seeded scalars, 64 lanes. On cios, one
+              range launch of 32 candidates (n/8 to n/2 keys, up to 4
+              holes) and one dense launch of 62 random quarter subsets; on
+              rns one range launch; each with phase 4's forged lanes, empty
+              bitset and padded lanes, and each class's one launch is also
+              its timed one. Verdicts as known by construction; B1 launches
+              on cios at 24 limbs only, B2 on rns at k_all 65 only, and
+              nothing else launches on either path (each path one main-path
+              run). Then a 2-lane pairing on each engine's curves against
+              the port's copy of the BLS12-381 scalar oracle, and batched G1
+              combines (classes 2, 4, 8, one group summing to infinity) on
+              each engine against the oracle's sums: both on the cios field,
+              B1 alone at 24 limbs. Then B1 (24 limbs) and B2 (k_all 65)
+              against their plain versions, exactly, at every column count
+              the phase's launches gave them. Each launch prints its wall,
+              B1's or B2's calls by column count and row count with the sum
+              of their bounds, and its peak device memory; the summary line
+              the nvidia-smi name and power limit.
 
-Each path of phases 4, 6, 7, 8 and 10 is one main-path run: every kernel's
+Each path of phases 4, 6, 7, 8, 10 and 11 is one main-path run: every kernel's
 launch count is set to 0 just before it and read just after; phase 9's
 counts are the node processes' own, which start at 0. Then one JSON line of
 kernel figures, the seconds each phase took (`phases`), the total, the
@@ -209,6 +233,25 @@ SERVICE_ROUND_NODES = 16
 # phase 10: the mixed-message service launch's sessions, each on its own
 # message, LANES / RLC_SESSIONS range candidates each
 RLC_SESSIONS = 4
+# phase 11: BLS12-381 at the repo's shape for it (scripts/bench_bls12.py:
+# 1024 keys from small seeded scalars, 64 lanes, 32 range candidates with
+# up to 4 holes, seed 7); the dense launch leaves two lanes padded, as
+# phase 4's does
+BLS_REGISTRY = 1024
+BLS_LANES = 64
+BLS_RANGE_CANDIDATES = 32
+BLS_DENSE_CANDIDATES = BLS_LANES - 2
+BLS_MAX_HOLES = 4
+BLS_SEED = 7
+# phase 11's main widths, timed and checked in phase 3: the Fp12 multiply
+# over the 2C Miller lanes, the dense class's widest stacked G2 add (as
+# phase 4's), the 64-column calls of the affine inverse (B1) and of the
+# per-lane products (both), and the next most frequent widths
+BLS_B1_WIDTHS = {"bls_f12_mul": 54 * 2 * BLS_LANES,
+                 "bls_g2_add_dense": 9 * BLS_REGISTRY * BLS_LANES,
+                 "bls_narrow": BLS_LANES, "bls_1152": 18 * BLS_LANES}
+BLS_B2_WIDTHS = {"bls_f12_mul": 54 * 2 * BLS_LANES, "bls_768": 12 * BLS_LANES,
+                 "bls_narrow": BLS_LANES, "bls_1152": 18 * BLS_LANES}
 # phase 9: the repo's 128-node device config through the port's sim entry
 # point, with these changes (module docstring)
 SIM_CONFIG = "results/handel_128_device.toml"
@@ -709,39 +752,42 @@ def lab_phase(dev, counters) -> dict:
             "replayed": replayed}
 
 
-def make_registry(n: int, rng: random.Random):
-    """Registry keys from seeded small scalars (bench.py's keygen shape:
-    device cost does not depend on the scalar size)."""
-    from handel_tpu_torch.models.bn254 import BN254PublicKey
-    from handel_tpu_torch.ops import bn254_ref as bn
+# A curve family is its engine class (BN254Device, BLS12381Device): the
+# class binds the scalar oracle `ref`, `Curves`, `Pairing`, `_hash_to_g1`
+# and the host `PublicKey` and `Signature` types.
 
+
+def make_registry(n: int, rng: random.Random, family):
+    """Registry keys of `family`'s curve from seeded small scalars
+    (bench.py's and scripts/bench_bls12.py's keygen shape: device cost does
+    not depend on the scalar size)."""
+    ref = family.ref
     sks = [rng.randrange(1, 1 << 30) for _ in range(n)]
-    return sks, [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+    return sks, [family.PublicKey(ref.g2_mul(ref.G2_GEN, s)) for s in sks]
 
 
-def make_requests(kind: str, sks, count: int, rng: random.Random, msg: bytes = MSG,
-                  honest: bool = False):
-    """`count` candidates of one launch class on `msg` with the verdict each
-    must get.
+def make_requests(kind: str, sks, count: int, rng: random.Random, family, msg: bytes = MSG,
+                  honest: bool = False, max_holes: int = 8):
+    """`count` candidates of one launch class of `family`'s curve on `msg`
+    with the verdict each must get.
 
     range: contiguous partitioner ranges of n/8, n/4 or n/2 keys with up to
-    8 holes (bench.py build_problem); dense: random quarter subsets
-    (bench.py's dense phase). Unless `honest`, lane 1 carries a wrong
-    signature, lane 2 a signature over another message, lane 3 an empty
-    bitset."""
+    `max_holes` holes (bench.py build_problem); dense: random quarter
+    subsets (bench.py's dense phase). Unless `honest`, lane 1 carries a
+    wrong signature, lane 2 a signature over another message, lane 3 an
+    empty bitset."""
     from handel_tpu_torch.core.bitset import BitSet
-    from handel_tpu_torch.models.bn254 import BN254Signature, hash_to_g1
-    from handel_tpu_torch.ops import bn254_ref as bn
 
+    ref = family.ref
     n = len(sks)
-    h, h_other = hash_to_g1(msg), hash_to_g1(msg + b" (other)")
+    h, h_other = family._hash_to_g1(msg), family._hash_to_g1(msg + b" (other)")
     forged = () if honest else (1, 2, 3)
     requests, expect = [], []
     for j in range(count):
         if kind == "range":
             size = rng.choice([n // 8, n // 4, n // 2])
             lo = rng.randrange(0, n - size)
-            holes = set(rng.sample(range(lo, lo + size), rng.randrange(0, 9)))
+            holes = set(rng.sample(range(lo, lo + size), rng.randrange(0, max_holes + 1)))
             signers = [i for i in range(lo, lo + size) if i not in holes]
         else:
             signers = rng.sample(range(n), n // 4)
@@ -751,32 +797,31 @@ def make_requests(kind: str, sks, count: int, rng: random.Random, msg: bytes = M
         bs = BitSet(n)
         for i in signers:
             bs.set(i, True)
-        agg = sum(sks[i] for i in signers) % bn.R
-        point = bn.g1_mul(h_other if lane == 2 else h, agg + (1 if lane == 1 else 0))
-        requests.append((bs, BN254Signature(point)))
+        agg = sum(sks[i] for i in signers) % ref.R
+        point = ref.g1_mul(h_other if lane == 2 else h, agg + (1 if lane == 1 else 0))
+        requests.append((bs, family.Signature(point)))
         expect.append(j not in forged)
     return requests, expect
 
 
-def pairing_phase(device, backend: str) -> None:
-    """e(P, Q) on the card against the scalar oracle on two lanes (the
-    resident pairing for the rns backend)."""
-    from handel_tpu_torch.ops import bn254_ref as bn
-    from handel_tpu_torch.ops.curve import BN254Curves
-    from handel_tpu_torch.ops.pairing import BN254Pairing
-
-    pr = BN254Pairing(BN254Curves(device=device, backend=backend))
-    if pr.resident != (backend == "rns"):
-        raise AssertionError(f"{backend} pairing resident={pr.resident}")
+def pairing_phase(device, backend: str, family, curves=None) -> None:
+    """e(P, Q) on the card against the scalar oracle of `family`'s curve on
+    two lanes (the resident pairing for the rns backend), over `curves` when
+    given."""
+    ref, name = family.ref, family.__name__
+    pr = family.Pairing(curves or family.Curves(device=device, backend=backend))
+    if pr.resident != (backend == "rns") or pr.F.backend != backend:
+        raise AssertionError(f"{name} {backend} pairing resident={pr.resident}")
     F, T = pr.F, pr.T
     rng = random.Random(SEED)
-    ps = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
-    qs = [bn.g2_mul(bn.G2_GEN, rng.randrange(1, bn.R)) for _ in range(2)]
+    ps = [ref.g1_mul(ref.G1_GEN, rng.randrange(1, ref.R)) for _ in range(2)]
+    qs = [ref.g2_mul(ref.G2_GEN, rng.randrange(1, ref.R)) for _ in range(2)]
     p = (F.pack([x[0] for x in ps]), F.pack([x[1] for x in ps]))
     q = (T.f2_pack([x[0] for x in qs]), T.f2_pack([x[1] for x in qs]))
-    if T.f12_unpack(pr.pairing(p, q)) != [bn.pairing(b, a) for a, b in zip(ps, qs)]:
-        raise AssertionError(f"{backend} pairing on the card != scalar oracle")
-    line("pairing", backend=backend, resident=pr.resident, lanes=2, matches_oracle=True)
+    if T.f12_unpack(pr.pairing(p, q)) != [ref.pairing(b, a) for a, b in zip(ps, qs)]:
+        raise AssertionError(f"{name} {backend} pairing on the card != scalar oracle")
+    line("pairing", family=name, backend=backend, resident=pr.resident, lanes=2,
+         matches_oracle=True)
 
 
 def profile_phase(cons, pks, requests, kernel: str, label: str, counter, bound) -> dict:
@@ -1116,7 +1161,8 @@ def service_load_phase(cons, pks, sks, counters, prng) -> dict:
 
     engine = cons._device
     dev = engine.device
-    batches = [make_requests("range", sks, RANGE_CANDIDATES, prng) for _ in range(SERVICE_SESSIONS)]
+    batches = [make_requests("range", sks, RANGE_CANDIDATES, prng, cons.Device)
+               for _ in range(SERVICE_SESSIONS)]
     calls = LaneCalls(engine)
     svc = BatchVerifierService(engine, fallback=None, max_inflight=2)
     engine.reset_host_counters()
@@ -1446,6 +1492,29 @@ def sim_phase() -> dict:
     return fig
 
 
+def snapshot(counters) -> dict:
+    """Each kernel's launch count and B1's and B2's histograms by column
+    and by row count, for `moved`."""
+    return {k: (c.launches, dict(getattr(c, "widths", {})), dict(getattr(c, "rows", {})))
+            for k, c in counters.items()}
+
+
+def moved(counters, before) -> dict:
+    """{kernel: launches, calls by column count and by row count} since the
+    `snapshot` `before`, for the kernels that launched."""
+    def diff(now, then):
+        return {str(x): n - then.get(x, 0) for x, n in sorted(now.items()) if n != then.get(x, 0)}
+
+    out = {}
+    for k, c in counters.items():
+        n0, w0, r0 = before[k]
+        if c.launches != n0:
+            out[k] = {"launches": c.launches - n0,
+                      "widths": diff(getattr(c, "widths", {}), w0),
+                      "rows": diff(getattr(c, "rows", {}), r0)}
+    return out
+
+
 class RlcCase:
     """One case of phase 10 on one engine, as a context around its launch:
     the wall from dispatch to verdicts, the engine's RLC counters and host
@@ -1460,8 +1529,7 @@ class RlcCase:
     def __enter__(self):
         self.engine.reset_host_counters()
         self.multi0 = self.engine.multi_msg_launches
-        self.launches0 = {k: c.launches for k, c in self.counters.items()}
-        self.widths0 = {k: dict(getattr(c, "widths", {})) for k, c in self.counters.items()}
+        self.before = snapshot(self.counters)
         self.t0 = time.perf_counter()
         return self
 
@@ -1470,14 +1538,9 @@ class RlcCase:
             return False
         eng = self.engine
         wall_ms = (time.perf_counter() - self.t0) * 1e3
-        launches = {k: c.launches - self.launches0[k] for k, c in self.counters.items()}
-        widths = {}
-        for k, c in self.counters.items():
-            moved = {cols: n - self.widths0[k].get(cols, 0)
-                     for cols, n in getattr(c, "widths", {}).items()
-                     if n != self.widths0[k].get(cols, 0)}
-            if moved:
-                widths[k] = {str(cols): n for cols, n in sorted(moved.items())}
+        delta = moved(self.counters, self.before)
+        launches = {k: delta[k]["launches"] if k in delta else 0 for k in self.counters}
+        widths = {k: d["widths"] for k, d in delta.items() if d["widths"]}
         st = eng.rlc_stats
         per = lambda ms, n: ms / n if n else 0.0  # noqa: E731
         self.fig = {
@@ -1527,18 +1590,20 @@ def rlc_phase(cons, rcons, sks, pks, counters, prng, p50_ms) -> dict:
     dev = base.device
     eng = BN254Device(bank=base.bank, batch_size=LANES, curves=cons.curves,
                       batch_check="rlc", rlc_rng=random.Random(SEED))
-    range_reqs, range_expect = make_requests("range", sks, LANES, prng, honest=True)
-    dense_reqs, dense_expect = make_requests("dense", sks, DENSE_CANDIDATES, prng, honest=True)
+    range_reqs, range_expect = make_requests("range", sks, LANES, prng, BN254Device, honest=True)
+    dense_reqs, dense_expect = make_requests("dense", sks, DENSE_CANDIDATES, prng, BN254Device,
+                                             honest=True)
     for kind, reqs in (("range", range_reqs), ("dense", dense_reqs)):
         if eng._pack_requests(reqs).kind != kind:
             raise AssertionError(f"rlc: {kind} requests packed as another launch class")
     per_session = LANES // RLC_SESSIONS
     session_msgs = [MSG + b" session %d" % i for i in range(RLC_SESSIONS)]
-    sessions = [make_requests("range", sks, per_session, prng, msg=m, honest=True)
+    sessions = [make_requests("range", sks, per_session, prng, BN254Device, msg=m, honest=True)
                 for m in session_msgs]
-    pair = [make_requests("range", sks, 1, prng, honest=True)[0][0],
-            make_requests("range", sks, 3, prng)[0][2]]  # signed over another message
-    mixed = [make_requests("range", sks, per_session, prng, msg=m) for m in session_msgs]
+    pair = [make_requests("range", sks, 1, prng, BN254Device, honest=True)[0][0],
+            make_requests("range", sks, 3, prng, BN254Device)[0][2]]  # over another message
+    mixed = [make_requests("range", sks, per_session, prng, BN254Device, msg=m)
+             for m in session_msgs]
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(counters)
@@ -1639,6 +1704,157 @@ def rlc_phase(cons, rcons, sks, pks, counters, prng, p50_ms) -> dict:
     return fig
 
 
+def path_widths_check(F24, R65, widths: dict) -> dict:
+    """B1 on the 24-limb field `F24` and B2 on the 65-residue field `R65`
+    against their plain versions, exactly, at every column count of
+    `widths` ({"cios": B1's {cols: calls}, "rns": B2's}): seeded canonical
+    operands (B1's led by the edge pairs), residues with 0 and m_i - 1
+    first (B2's). Returns {kernel/rows: widths checked}. Raises on any
+    difference."""
+    import torch
+
+    rng = np.random.default_rng(BLS_SEED)
+    out = {}
+    for F, cols_of, fn, plain, name in (
+            (F24, widths["cios"], F24.mul, F24._mul_plain, "fp_mont_mul/24"),
+            (R65, widths["rns"], R65.mul_resident, R65._mul_resident_core,
+             "rns_mont_mul_resident/65")):
+        for cols in sorted(int(c) for c in cols_of):
+            if F is F24:
+                a, b = operand_pair(F, cols, rng, with_edges=cols >= 16)
+            else:
+                a, b = random_residues(F, cols, rng), random_residues(F, cols, rng)
+            a, b = a.to(F.device), b.to(F.device)
+            if not torch.equal(fn(a, b), plain(a, b)):
+                raise AssertionError(f"{name} != plain at phase 11's width {cols}")
+        out[name] = sorted(int(c) for c in cols_of)
+    torch.cuda.synchronize()
+    line("bls12_381_widths", checked=out, max_abs_err=0)
+    return out
+
+
+def bls_phase(dev, counters) -> dict:
+    """Phase 11: BLS12-381 through `new_scheme("bls12-381-cuda")` at the
+    repo's shape for it (module docstring). Each backend's launches are one
+    main-path run: every count set to 0 just before them and read just
+    after. Raises on any failed check; returns the figures."""
+    import torch
+
+    from handel_tpu_torch.models.bls12_381_torch import BLS12381Device, BLS12381TorchScheme
+    from handel_tpu_torch.models.registry import new_scheme
+
+    t_phase = time.perf_counter()
+    family = BLS12381Device
+    ref = family.ref
+    prng = random.Random(BLS_SEED)
+    t0 = time.perf_counter()
+    sks, pks = make_registry(BLS_REGISTRY, prng, family)
+    reqs = {
+        "range": make_requests("range", sks, BLS_RANGE_CANDIDATES, prng, family,
+                               max_holes=BLS_MAX_HOLES),
+        "dense": make_requests("dense", sks, BLS_DENSE_CANDIDATES, prng, family),
+    }
+    line("bls12_381_setup", registry=BLS_REGISTRY, host_keygen_s=time.perf_counter() - t0)
+    # backend: (its kernel, that kernel's rows at 381 bits, launch classes)
+    paths = {"cios": ("fp_mont_mul", 24, ("range", "dense")),
+             "rns": ("rns_mont_mul_resident", 65, ("range",))}
+    cons_of, figs = {}, {}
+    for backend, (kernel, rows, classes) in paths.items():
+        scheme = new_scheme("bls12-381-cuda", batch_size=BLS_LANES, device=dev,
+                            fp_backend=backend)
+        if not isinstance(scheme, BLS12381TorchScheme):
+            raise AssertionError(f"bls12-381-cuda built a {type(scheme).__name__}")
+        cons = cons_of[backend] = scheme.constructor
+        bound = ((lambda c: mont_mul_bound_ms(24, c)[0]) if backend == "cios"
+                 else (lambda c, F=cons.curves.F: rns_bound_ms(F, c)[0]))
+        t0 = time.perf_counter()
+        engine = cons.prepare(pks)  # registry commit, warmup launch, prefix table
+        torch.cuda.synchronize(dev)
+        prepare_s = time.perf_counter() - t0
+        for kind in classes:
+            if engine._pack_requests(reqs[kind][0]).kind != kind:
+                raise AssertionError(f"bls12_381 {kind} requests packed as another class")
+        zero_counts(counters)  # the main path: counts zeroed just before
+        per_launch = {}
+        for kind in classes:
+            requests, expect = reqs[kind]
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = snapshot(counters)
+            t0 = time.perf_counter()
+            got = cons.batch_verify(MSG, pks, requests)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if got != expect:
+                bad = [j for j, (g, e) in enumerate(zip(got, expect)) if g != e]
+                raise AssertionError(f"bls12_381 {backend} {kind} verdicts wrong at lanes {bad}")
+            delta = moved(counters, before)
+            calls = delta.get(kernel, {"widths": {}})["widths"]
+            per_launch[kind] = {
+                "wall_ms": wall_ms, "candidates": len(requests),
+                "kernel_launches": {k: v["launches"] for k, v in delta.items()},
+                "widths": calls, "rows": delta.get(kernel, {}).get("rows", {}),
+                "bound_ms": sum(n * bound(int(c)) for c, n in calls.items()),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            }
+            line("bls12_381", path=backend, launch_class=kind, lanes=BLS_LANES,
+                 registry=BLS_REGISTRY, verdicts_ok=True, **per_launch[kind])
+        launches = {k: c.launches for k, c in counters.items()}  # read just after
+        if launches[kernel] == 0:
+            raise AssertionError(f"the bls12_381 {backend} path never launched {kernel}")
+        for k in counters:
+            if k != kernel and launches[k] != 0:
+                raise AssertionError(
+                    f"the bls12_381 {backend} path launched {k} {launches[k]} times")
+        if dict(counters[kernel].rows) != {rows: launches[kernel]}:
+            raise AssertionError(f"bls12_381 {backend}: {kernel} ran at rows "
+                                 f"{dict(counters[kernel].rows)}, expected only {rows}")
+        figs[backend] = {"prepare_s": prepare_s, "launches": launches,
+                         "widths": {str(c): n for c, n in sorted(counters[kernel].widths.items())},
+                         "bound_ms": sum(v["bound_ms"] for v in per_launch.values()),
+                         "per_launch": per_launch}
+
+    # the oracle pairing on each engine's own curves, then the combine
+    for backend, cons in cons_of.items():
+        pairing_phase(dev, backend, family, curves=cons.curves)
+    crng = random.Random(BLS_SEED)
+    pts = [ref.g1_mul(ref.G1_GEN, crng.randrange(1, ref.R)) for _ in range(8)]
+    combine = {}
+    for backend, cons in cons_of.items():
+        engine = cons._device
+        if engine._combine_curves.F.backend != "cios":
+            raise AssertionError(f"the bls12_381 {backend} engine combines off the cios field")
+        before = snapshot(counters)
+        for k in (2, 4, 8):
+            groups = [[pts[(j + i) % 8] for i in range(k - j % 2)] for j in range(6)]
+            groups[0] = [pts[0], ref.g1_neg(pts[0])] + groups[0][2:]
+            want = []
+            for g in groups:
+                acc = None
+                for q in g:
+                    acc = ref.g1_add(acc, q)
+                want.append(acc)
+            if engine.combine_batch(groups) != want:
+                raise AssertionError(f"bls12_381 {backend} combine class {k} != the oracle's sums")
+        c = combine[backend] = moved(counters, before)
+        if set(c) != {"fp_mont_mul"} or c["fp_mont_mul"]["rows"] != {
+                "24": c["fp_mont_mul"]["launches"]}:
+            raise AssertionError(f"bls12_381 {backend} combine: B1 alone at 24 limbs, got {c}")
+    checked = path_widths_check(cons_of["cios"].curves.F, cons_of["rns"].curves.F,
+                                {b: f["widths"] for b, f in figs.items()})
+    fig = {"paths": figs, "combine": combine, "checked_widths": checked,
+           "seconds": time.perf_counter() - t_phase}
+    line("bls12_381_summary", **{
+        "seconds": fig["seconds"],
+        "walls_ms": {f"{b}_{kind}": v["wall_ms"] for b, f in figs.items()
+                     for kind, v in f["per_launch"].items()},
+        "prepare_s": {b: f["prepare_s"] for b, f in figs.items()},
+        "kernel_launches": {b: f["launches"] for b, f in figs.items()},
+        "bound_ms": {b: f["bound_ms"] for b, f in figs.items()},
+        "combine_kernel_launches": {b: {k: v["launches"] for k, v in c.items()}
+                                    for b, c in combine.items()},
+        "nvidia_smi": nvidia_smi()})
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -1652,7 +1868,7 @@ def main() -> int:
     from handel_tpu_torch.kernels.rns_mont import SUPPORTED_BASES as RNS_BASES
     from handel_tpu_torch.kernels.rns_mont import TILES as RNS_TILES
     from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
-    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+    from handel_tpu_torch.models.bn254_torch import BN254Device, BN254TorchScheme
     from handel_tpu_torch.ops import bn254_ref as bn
     from handel_tpu_torch.ops.fp import Field
 
@@ -1718,10 +1934,11 @@ def main() -> int:
         F16, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width, "g2_add_dense": widest},
         rng, with_edges=True,
     )
-    k24 = kernel_phase(F24, {"random+edges": (1 << 20) + 16}, rng, with_edges=True)
+    k24 = kernel_phase(F24, {"random+edges": (1 << 20) + 16, **BLS_B1_WIDTHS}, rng,
+                       with_edges=True)
     done("kernel")
     r46 = rns_kernel_phase(R46, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width}, rng)
-    r65 = rns_kernel_phase(R65, {"random+edges": (1 << 20) + 16}, rng)
+    r65 = rns_kernel_phase(R65, {"random+edges": (1 << 20) + 16, **BLS_B2_WIDTHS}, rng)
     done("rns_kernel")
     b3 = lab_kernel_phase(
         F16, {"random+edges": (1 << 20) + 16, "lab_batch": 1 << 18, "f12_mul": f12_width}, rng
@@ -1731,16 +1948,16 @@ def main() -> int:
         b3[kname].update(b3_24[kname])
     done("lab_kernel")
 
-    pairing_phase(dev, "cios")
-    pairing_phase(dev, "rns")
+    pairing_phase(dev, "cios", BN254Device)
+    pairing_phase(dev, "rns", BN254Device)
     done("pairing")
 
     prng = random.Random(SEED)
     t0 = time.perf_counter()
-    sks, pks = make_registry(N_REGISTRY, prng)
+    sks, pks = make_registry(N_REGISTRY, prng, BN254Device)
     reqs = {
-        "range": make_requests("range", sks, RANGE_CANDIDATES, prng),
-        "dense": make_requests("dense", sks, DENSE_CANDIDATES, prng),
+        "range": make_requests("range", sks, RANGE_CANDIDATES, prng, BN254Device),
+        "dense": make_requests("dense", sks, DENSE_CANDIDATES, prng, BN254Device),
     }
     line("setup", registry=N_REGISTRY, host_keygen_s=time.perf_counter() - t0)
     done("setup")
@@ -1783,6 +2000,8 @@ def main() -> int:
         "cios_range": cios_p50["range"], "cios_dense": cios_p50["dense"],
         "rns_range": rns_p50["range"]})
     done("rlc")
+    bls = bls_phase(dev, counters)
+    done("bls12_381")
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
@@ -1798,6 +2017,21 @@ def main() -> int:
                                    "bound_ms": c["bound_ms"].get(kname)}
                             for name, c in rlc["cases"].items()
                             if c["kernel_launches"][kname]}}
+
+    def on_bls(kname, backend, at_widths):
+        """The kernel's launches on phase 11's path of its backend, its calls
+        by column and row count there and the sum of their bounds; phase 3's
+        figures at phase 11's main widths (`at_widths`), and the widths at
+        which phase 11 held it to its plain version."""
+        f = bls["paths"][backend]
+        return {"launches": f["launches"][kname], "widths": f["widths"],
+                "rows": {k: v["rows"] for k, v in f["per_launch"].items()},
+                "bound_ms": f["bound_ms"],
+                "at_widths": {label: {k: fig[k] for k in (
+                    "cols", "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by")}
+                    for label, fig in at_widths.items() if label.startswith("bls_")},
+                "checked_widths": next(v for k, v in bls["checked_widths"].items()
+                                       if k.startswith(kname))}
 
     def entry(kname, source, replaces, launches, widths, fig, **extra):
         return {
@@ -1821,7 +2055,8 @@ def main() -> int:
               on_service=on_service,
               on_sim={"launches": sim["b1_launches"],
                       "launches_in_round": sim["b1_launches_in_round"]},
-              on_rlc=on_rlc("fp_mont_mul")),
+              on_rlc=on_rlc("fp_mont_mul"),
+              on_bls12_381=on_bls("fp_mont_mul", "cios", k24)),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],
@@ -1829,7 +2064,8 @@ def main() -> int:
               on_service={"round_rns": {
                   "launches": srnd_rns["kernel_launches"]["rns_mont_mul_resident"],
                   "widths": srnd_rns["widths"].get("rns_mont_mul_resident", {})}},
-              on_rlc=on_rlc("rns_mont_mul_resident")),
+              on_rlc=on_rlc("rns_mont_mul_resident"),
+              on_bls12_381=on_bls("rns_mont_mul_resident", "rns", r65)),
         *(entry(kname, "handel_tpu_torch/csrc/lab_mont.cu", "scripts/fp_kernel_lab.py:234",
                 lab["executed"][kname], list(b3[kname].values()), b3[kname]["random+edges/16"],
                 captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])

@@ -4,8 +4,9 @@
 with torch.empty, launches on torch.cuda.current_stream() and raises if the
 launch was refused. `mont_mul.launches` counts launches, and only launches:
 a run can read it to show that its path went through the kernel;
-`mont_mul.widths` counts the launches by column count, and `reset()` zeroes
-both. The library is built and loaded at the first launch, never at import.
+`mont_mul.widths` counts the launches by column count and `mont_mul.rows`
+by limb count (16 for BN254, 24 for BLS12-381), and `reset()` zeroes all
+three. The library is built and loaded at the first launch, never at import.
 
 Lanes per column: the kernel shares each column among TPI = 2 or 4 lanes
 of a warp for narrow calls, and runs one lane a column for wide ones
@@ -48,6 +49,8 @@ class MontMulKernel:
     def __init__(self):
         self.launches = 0
         self.widths: Counter[int] = Counter()
+        # launches by row count (limbs): which curve family's field ran
+        self.rows: Counter[int] = Counter()
         self.tpi: int | None = None
         self._fn = None
         # launches come from several threads (a service's worker thread
@@ -56,15 +59,17 @@ class MontMulKernel:
         self._lock = threading.Lock()
 
     def reset(self) -> None:
-        """Zero the launch count and the width histogram."""
+        """Zero the launch count and the width and row histograms."""
         with self._lock:
             self.launches = 0
             self.widths.clear()
+            self.rows.clear()
 
-    def _count(self, cols: int) -> None:
+    def _count(self, cols: int, rows: int) -> None:
         with self._lock:
             self.launches += 1
             self.widths[cols] += 1
+            self.rows[rows] += 1
 
     def _entry(self):
         with self._lock:
@@ -128,7 +133,7 @@ class MontMulKernel:
             )
         if rc != 0:
             raise RuntimeError(f"mont_mul launch failed: cudaError {rc}")
-        self._count(cols)
+        self._count(cols, n)
         return out
 
 

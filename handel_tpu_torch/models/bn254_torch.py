@@ -83,6 +83,7 @@ from handel_tpu_torch.models.bn254 import (
     BN254Constructor,
     BN254PublicKey,
     BN254Scheme,
+    BN254Signature,
     hash_to_g1,
 )
 from handel_tpu_torch.ops import bn254_ref as bn
@@ -196,10 +197,14 @@ class BN254Device:
     "rlc"; `rlc_rng` draws the RLC scalars (default `random.SystemRandom`:
     they are adversary-facing)."""
 
+    # the curve family, rebound by each family's subclass: its scalar
+    # oracle, device curves and pairing, and its host hash and key types
     ref = bn
     Curves = BN254Curves
     Pairing = BN254Pairing
     _hash_to_g1 = staticmethod(hash_to_g1)
+    PublicKey = BN254PublicKey
+    Signature = BN254Signature
 
     # missing-signer patch width cap: candidates whose range hull has more
     # holes than this fall back to the dense class

@@ -8,10 +8,12 @@ port's engine (models/bn254_torch.py), on the card unless the caller passes
 One table holds every alias: canonical name -> (is_device, factory), so a
 new alias cannot miss the batch-size plumbing in sim/node.py.
 
-The port's device scheme is `bn254-cuda` (alias `bn256-cuda`). The JAX
-package's device names `bn254-jax`, `bn254-tpu` and `bn256-tpu` select the
-same scheme here, so that the repo's `results/*_device.toml` configs run
-unchanged. The BLS12-381 and EdDSA names are known but not ported yet: they
+The port's device schemes are `bn254-cuda` (alias `bn256-cuda`) and
+`bls12-381-cuda`. The JAX package's device names select them here
+(`bn254-jax`, `bn254-tpu` and `bn256-tpu` the first; `bls12-381-jax`,
+`bls12-381-tpu` and `bls12381-jax` the second), so that the repo's
+`results/*_device.toml` configs run unchanged. `bls12-381` and `bls12381`
+name the host scheme. The EdDSA names are known but not ported yet: they
 raise a ValueError that names their ROADMAP item.
 """
 
@@ -36,6 +38,18 @@ def _bn254_cuda(**kw):
     return BN254TorchScheme(**kw)
 
 
+def _bls12_381(**kw):
+    from handel_tpu_torch.models.bls12_381 import BLS12381Scheme
+
+    return BLS12381Scheme()
+
+
+def _bls12_381_cuda(**kw):
+    from handel_tpu_torch.models.bls12_381_torch import BLS12381TorchScheme
+
+    return BLS12381TorchScheme(**kw)
+
+
 def _not_ported(what: str, item: int):
     def factory(**kw):
         raise ValueError(
@@ -45,7 +59,6 @@ def _not_ported(what: str, item: int):
     return factory
 
 
-_bls12_381 = _not_ported("BLS12-381", 6)
 _eddsa = _not_ported("EdDSA", 9)
 
 # alias -> (is_device_scheme, factory)
@@ -64,10 +77,10 @@ _TABLE = {
     "ed25519": (False, _eddsa),
     "bls12-381": (False, _bls12_381),
     "bls12381": (False, _bls12_381),
-    "bls12-381-cuda": (True, _bls12_381),
-    "bls12-381-jax": (True, _bls12_381),
-    "bls12-381-tpu": (True, _bls12_381),
-    "bls12381-jax": (True, _bls12_381),
+    "bls12-381-cuda": (True, _bls12_381_cuda),
+    "bls12-381-jax": (True, _bls12_381_cuda),
+    "bls12-381-tpu": (True, _bls12_381_cuda),
+    "bls12381-jax": (True, _bls12_381_cuda),
 }
 
 

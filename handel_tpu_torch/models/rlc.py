@@ -25,12 +25,13 @@ and attributed exactly as in per_candidate mode, at O(f·log C) extra
 checks for f forgeries.
 
 Consumers: `service.driver.HostDevice` uses `host_rlc_check` (the scalar
-oracle's group math, ops/bn254_ref.py: the port has no native library);
-`models.bn254_torch.BN254Device` supplies a device combined check (the
-MSMs and the (G+1)-lane pairing tail on the card) and shares
-`draw_scalars`/`bisect_verify`/`RlcStats`. BLS12-381 has no ops table
-yet (ROADMAP item 6): `host_ops_for` returns None for every scheme but
-BN254, and its callers check per candidate.
+oracle's group math, ops/bn254_ref.py or ops/bls12_381_ref.py: the port
+has no native library); `models.bn254_torch.BN254Device` (and its
+BLS12-381 binding) supplies a device combined check (the MSMs and the
+(G+1)-lane pairing tail on the card) and shares
+`draw_scalars`/`bisect_verify`/`RlcStats`. `host_ops_for` returns None for
+schemes without an ops table (the fake scheme), and their callers check
+per candidate.
 """
 
 from __future__ import annotations
@@ -166,12 +167,31 @@ def bn254_host_ops() -> HostRlcOps:
     )
 
 
+def bls12_381_host_ops() -> HostRlcOps:
+    from handel_tpu_torch.models.bls12_381 import hash_to_g1
+    from handel_tpu_torch.ops import bls12_381_ref as bls
+
+    return HostRlcOps(
+        g1_mul_batch=_mul_batch(bls.g1_mul),
+        g1_sum=_sum_with(bls.g1_add),
+        g1_neg=bls.g1_neg,
+        g2_mul_batch=_mul_batch(bls.g2_mul),
+        g2_sum=_sum_with(bls.g2_add),
+        g2_gen=bls.G2_GEN,
+        pairing_check=bls.pairing_check,
+        hash_to_g1=hash_to_g1,
+    )
+
+
 def host_ops_for(constructor) -> HostRlcOps | None:
     """The scalar-oracle ops table for a scheme constructor, or None when
-    the scheme has no RLC seam here (the fake scheme; BLS12-381 until it is
-    ported) — callers fall back to per_candidate verification."""
-    if "bn254" in type(constructor).__module__:
+    the scheme has no RLC seam (the fake scheme) — callers fall back to
+    per_candidate verification."""
+    mod = type(constructor).__module__
+    if "bn254" in mod:
         return bn254_host_ops()
+    if "bls12_381" in mod:
+        return bls12_381_host_ops()
     return None
 
 

@@ -1,5 +1,5 @@
-"""Batched elliptic-curve group ops for BN254 G1 (Fp) and G2 (Fp2) —
-counterpart of handel_tpu/ops/curve.py.
+"""Batched elliptic-curve group ops for G1 (Fp) and G2 (Fp2) of BN254 and
+BLS12-381 — counterpart of handel_tpu/ops/curve.py.
 
 * Complete projective formulas (Renes–Costello–Batina 2015, Alg. 7, a = 0):
   one branch-free formula covers generic add, doubling, the identity and
@@ -9,8 +9,9 @@ counterpart of handel_tpu/ops/curve.py.
 * `sum_points` folds n point blocks in ceil(log2 n) stacked add stages;
   `prefix_scan` is a Hillis–Steele scan over the same add.
 
-Correctness oracle: ops/bn254_ref.py; parity with the JAX package in
-tests/test_torch_tower_curve.py.
+Correctness oracles: ops/bn254_ref.py and ops/bls12_381_ref.py; parity with
+the JAX package in tests/test_torch_tower_curve.py and
+tests/test_torch_bls12_381.py.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from handel_tpu_torch.ops import bls12_381_ref as _bls
 from handel_tpu_torch.ops import bn254_ref as bn
 from handel_tpu_torch.ops.fp import Field
 from handel_tpu_torch.ops.tower import Tower, _split
@@ -395,3 +397,12 @@ class BN254Curves:
         """`scalar_bits64_np` on this field's device: the RLC launch's
         per-candidate random-coefficient operand."""
         return torch.from_numpy(self.scalar_bits64_np(ks)).to(self.device)
+
+
+class BLS12Curves(BN254Curves):
+    """BLS12-381 binding: E: y^2 = x^3 + 4 (b3 = 12) over the 381-bit field
+    (24 limbs), E'(Fp2) with the M-type twist coefficient 4(1+i)
+    (ops/bls12_381_ref.py TWIST_B)."""
+
+    params = _bls
+    g1_b3 = 12

@@ -1,4 +1,5 @@
-"""Batched optimal-ate pairing for BN254 — counterpart of handel_tpu/ops/pairing.py.
+"""Batched optimal-ate pairing for BN254 and BLS12-381 — counterpart of
+handel_tpu/ops/pairing.py.
 
 * Inversion-free Miller loop: the accumulator T runs in homogeneous
   projective coordinates on the twist E'(Fp2); each step emits a sparse line
@@ -18,14 +19,19 @@
   loop and the final exponentiation run on residue planes through
   `Tower.as_resident()`; positional limbs appear only at the boundaries
   (points in, GT element or verdict out), each one stacked conversion.
+* `BLS12Pairing` rebinds the family: the same step formulas over the
+  381-bit field, the M-type twist's line slots, a conjugation for z < 0 in
+  place of the ate corrections, and the BLS12 hard part, which computes
+  the cubed pairing (ops/bls12_381_ref.py `final_exponentiation`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from handel_tpu_torch.ops import bls12_381_ref as bls
 from handel_tpu_torch.ops import bn254_ref as bn
-from handel_tpu_torch.ops.curve import BN254Curves, _tree_map
+from handel_tpu_torch.ops.curve import BLS12Curves, BN254Curves, _tree_map
 
 # MSB-first bits of the ate loop count 6u+2, top bit dropped (consumed by the
 # Miller-loop initialization T = Q, f = 1)
@@ -37,7 +43,7 @@ class BN254Pairing:
 
     def __init__(self, curves: BN254Curves | None = None, device=None,
                  resident: bool | None = None):
-        self.curves = curves or BN254Curves(device=device)
+        self.curves = curves or self._default_curves(device)
         self.F = self.curves.F
         self.T = self.curves.T
         # residue-resident mode: None = on exactly for the 'rns' backend
@@ -57,6 +63,10 @@ class BN254Pairing:
         # (bn254_ref.miller_loop_projective: gamma_2 for x, gamma_3 for y)
         self._g2c = self.curves.params._GAMMA[2]
         self._g3c = self.curves.params._GAMMA[3]
+
+    @classmethod
+    def _default_curves(cls, device):
+        return BN254Curves(device=device)
 
     # -- small helpers -------------------------------------------------------
 
@@ -167,6 +177,9 @@ class BN254Pairing:
 
     # -- Miller loop ---------------------------------------------------------
 
+    # the loop bits (overridden per curve family)
+    _LOOP_BITS = _ATE_BITS
+
     def miller_loop(self, p, q, mask=None):
         """Batched Miller loop. p: (xp, yp) base-field limb tensors (G1
         affine); q: (x, y) Fp2 pairs (G2' affine); mask: optional (B,) bool,
@@ -184,7 +197,7 @@ class BN254Pairing:
         batch = xp.shape[1]
         Tpt = (xq, yq, Tw.f2_one(batch))
         f = Tw.f12_one(batch)
-        for bit in _ATE_BITS:
+        for bit in self._LOOP_BITS:
             f = Tw.f12_sqr(f)
             Tpt, line = self._dbl_step(Tpt, xp, yp)
             f = Tw.f12_mul(f, self._line_f12(line, batch))
@@ -276,3 +289,57 @@ class BN254Pairing:
         for i in range(1, per):
             acc = self._Tw.f12_mul(acc, chunk(i))
         return self.gt_is_one(self.final_exp(acc))
+
+
+class BLS12Pairing(BN254Pairing):
+    """Batched optimal-ate pairing for BLS12-381 (ops/bls12_381_ref.py).
+
+    The projective dbl/add step formulas and their (yp-term, xp-term,
+    constant) lines are the BN254 engine's; what changes is:
+
+      * loop bits: |z| (z = -0xd201..., 63 bits after the top one, 5 of
+        them set), then one conjugation because z < 0, no ate corrections;
+      * line slots: the M-type twist's untwist puts the coefficients at
+        w-degrees (0, 2, 3) = Fp12 slots a0[0], a0[1], a1[1], with the
+        constant at w^0 (the D-twist puts the yp-term there);
+      * final exponentiation: the BLS12 hard part
+        (z-1)^2 (z+p) (z^2+p^2-1) + 3, which computes the cubed pairing, a
+        bilinear substitute since gcd(3, r) = 1.
+    """
+
+    _LOOP_BITS = [int(c) for c in bin(-bls.Z)[3:]]
+
+    @classmethod
+    def _default_curves(cls, device):
+        return BLS12Curves(device=device)
+
+    def _line_f12(self, line, batch):
+        c_yp, c_xp, c_const = line
+        z = self._Tw.f2_zero(batch)
+        return ((c_const, c_xp, z), (z, c_yp, z))
+
+    def _miller_tail(self, Tpt, f, q, xp, yp, batch):
+        # z < 0: f_z = 1/f_{|z|} up to the final exponentiation, so
+        # conjugate (resident: the accumulator sits at <= 2^22 p)
+        return self._Tw.f12_conj(f, 22)
+
+    def _pow_z(self, x):
+        """x^z in the cyclotomic subgroup (z < 0: x^|z|, then conjugate)."""
+        return self._Tw.f12_conj(self._Tw.f12_pow_const(x, -bls.Z, cyclo=True), 22)
+
+    def final_exp(self, f):
+        """Easy part, then the BLS12 hard part through
+        3(p^4-p^2+1)/r = (z-1)^2 (z+p) (z^2+p^2-1) + 3
+        (bls12_381_ref.final_exponentiation) with cyclotomic squarings.
+        Resident conjugation bounds: the Miller tail's conjugation leaves f
+        <= 2^23 p, hence 23 in the easy part; after it every value is back
+        at the <= 2^22 p multiply fixed point."""
+        Tw = self._Tw
+        f = Tw.f12_mul(Tw.f12_conj(f, 23), Tw.f12_inv(f))  # f^(p^6-1)
+        f = Tw.f12_mul(Tw.f12_frobenius2(f), f)  # ^(p^2+1)
+        t0 = Tw.f12_mul(self._pow_z(f), Tw.f12_conj(f, 22))  # f^(z-1)
+        t1 = Tw.f12_mul(self._pow_z(t0), Tw.f12_conj(t0, 22))  # f^((z-1)^2)
+        g = Tw.f12_mul(self._pow_z(t1), Tw.f12_frobenius(t1))  # ^(z+p)
+        gz2 = self._pow_z(self._pow_z(g))
+        h = Tw.f12_mul(Tw.f12_mul(gz2, Tw.f12_frobenius2(g)), Tw.f12_conj(g, 22))
+        return Tw.f12_mul(h, Tw.f12_mul(Tw.f12_cyclo_sqr(f), f))  # * f^3

@@ -2,6 +2,8 @@
 
     python -m handel_tpu_torch.utils.opcount [--registry 64] [--lanes 4] [--combine-lanes 128]
         [--rlc-lanes 128]
+    python -m handel_tpu_torch.utils.opcount --curve bls12-381 [--registry 64] [--lanes 4]
+        [--combine-lanes 64] [--dense-registry 1024]
 
 Runs one range launch per field backend ("cios", then "rns") through
 `BN254TorchScheme(device="cpu")` under a `TorchDispatchMode` that counts
@@ -20,6 +22,16 @@ backend, then one per backend for a `combine_batch` chunk at
 `--combine-lanes` lanes computed on that backend's field, then one per
 backend for an honest RLC range launch of `--rlc-lanes` candidates
 (`batch_check="rlc"`, one message).
+
+`--curve bls12-381` counts the BLS12-381 launch classes on
+`BLS12381TorchScheme(device="cpu")` instead: a range launch per backend
+over `--registry` keys, a dense launch on cios over `--dense-registry`
+keys (random quarter subsets; its masked sum takes log2 of the registry
+tree stages, so the default is the registry chip_smoke.py's phase 11 runs
+it at), and a cios `combine_batch` chunk. The RLC launch is not counted
+for this curve. Each line names its curve. The curve's family (oracle,
+key types, hash) is the device scheme's engine class, found by the
+scheme's name `<curve>-cuda` in models/registry.py.
 """
 
 from __future__ import annotations
@@ -111,26 +123,37 @@ def _counted(run):
     return counter, result
 
 
-def _range_problem(registry: int, lanes: int, seed: int):
-    """Seeded registry keys, message and `lanes` honest range candidates of
-    registry/4 contiguous signers each."""
-    from handel_tpu_torch.core.bitset import BitSet
-    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
-    from handel_tpu_torch.ops import bn254_ref as bn
+def _constructor(curve: str, lanes: int, backend: str = "cios", **kw):
+    """The CPU constructor of the curve's device scheme, `<curve>-cuda`."""
+    from handel_tpu_torch.models.registry import new_scheme
 
+    return new_scheme(f"{curve}-cuda", batch_size=lanes, device="cpu", fp_backend=backend,
+                      warmup=False, **kw).constructor
+
+
+def _range_problem(family, registry: int, lanes: int, seed: int, dense: bool = False):
+    """Seeded registry keys, message and `lanes` honest candidates of the
+    engine class `family`'s curve: range candidates of registry/4
+    contiguous signers each, or with `dense` random quarter subsets."""
+    from handel_tpu_torch.core.bitset import BitSet
+
+    ref = family.ref
     rng = random.Random(seed)
     sks = [rng.randrange(1, 1 << 30) for _ in range(registry)]
-    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+    pks = [family.PublicKey(ref.g2_mul(ref.G2_GEN, s)) for s in sks]
     msg = b"op count"
-    h = hash_to_g1(msg)
+    h = family._hash_to_g1(msg)
     requests = []
     for _ in range(lanes):
-        lo = rng.randrange(0, registry // 2)
-        idx = range(lo, lo + registry // 4)
+        if dense:
+            idx = rng.sample(range(registry), registry // 4)
+        else:
+            lo = rng.randrange(0, registry // 2)
+            idx = range(lo, lo + registry // 4)
         bs = BitSet(registry)
         for i in idx:
             bs.set(i, True)
-        requests.append((bs, BN254Signature(bn.g1_mul(h, sum(sks[i] for i in idx) % bn.R))))
+        requests.append((bs, family.Signature(ref.g1_mul(h, sum(sks[i] for i in idx) % ref.R))))
     return pks, msg, requests
 
 
@@ -141,16 +164,21 @@ def _top(counter) -> dict:
     return dict(top)
 
 
-def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> dict:
-    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
-
-    pks, msg, requests = _range_problem(registry, lanes, seed)
-    cons = BN254TorchScheme(batch_size=lanes, device="cpu", fp_backend=backend).constructor
-    cons.prepare(pks)
+def count_range_launch(backend: str, registry: int, lanes: int, seed: int = 1,
+                       curve: str = "bn254", dense: bool = False) -> dict:
+    """The kernel-launching ops of one honest launch of the range class (or
+    with `dense` the dense class) on the curve's device scheme."""
+    cons = _constructor(curve, lanes, backend)
+    pks, msg, requests = _range_problem(cons.Device, registry, lanes, seed, dense)
+    eng = cons.prepare(pks)
+    kind = "dense" if dense else "range"
+    if eng._pack_requests(requests).kind != kind:
+        raise AssertionError(f"{curve} {kind} candidates packed as another launch class")
+    _ = eng._prefix  # built at the first range launch: not part of a launch
     counter, verdicts = _counted(lambda: cons.batch_verify(msg, pks, requests))
     if not all(verdicts):
         raise AssertionError(f"{backend}: a valid candidate was rejected")
-    return {"backend": backend, "launch_class": "range", "lanes": lanes,
+    return {"curve": curve, "backend": backend, "launch_class": kind, "lanes": lanes,
             "registry": registry, "kernel_launching_ops": counter.launches(),
             "kernel_calls": counter.counts["kernel"], "scopes": dict(counter.scopes),
             "top": _top(counter)}
@@ -162,39 +190,37 @@ def count_rlc_launch(backend: str, registry: int, lanes: int, seed: int = 1) -> 
     (the prefix table is built before the count)."""
     from handel_tpu_torch.models.bn254_torch import BN254Device
 
-    pks, msg, requests = _range_problem(registry, lanes, seed)
+    pks, msg, requests = _range_problem(BN254Device, registry, lanes, seed)
     eng = BN254Device(pks, batch_size=lanes, device="cpu", fp_backend=backend,
                       batch_check="rlc", rlc_rng=random.Random(seed))
     _ = eng._prefix
     counter, verdicts = _counted(lambda: eng.fetch(eng.dispatch(msg, requests)))
     if not all(verdicts) or eng.rlc_stats.bisection_ct:
         raise AssertionError(f"{backend}: the honest RLC launch failed its combined check")
-    return {"backend": backend, "launch_class": "rlc range", "lanes": lanes,
+    return {"curve": "bn254", "backend": backend, "launch_class": "rlc range", "lanes": lanes,
             "registry": registry, "kernel_launching_ops": counter.launches(),
             "kernel_calls": counter.counts["kernel"], "scopes": dict(counter.scopes),
             "top": _top(counter)}
 
 
-def count_combine(backend: str, lanes: int, k: int = 4, seed: int = 1) -> dict:
+def count_combine(backend: str, lanes: int, k: int = 4, seed: int = 1,
+                  curve: str = "bn254") -> dict:
     """The kernel-launching ops of one `combine_batch` chunk (one group of k
     points, class k, after a warm call) computed on the given backend's
     field. The engine itself combines on the cios field whatever its
     backend; this count is why (models/bn254_torch.py)."""
-    from handel_tpu_torch.models.bn254 import BN254PublicKey
-    from handel_tpu_torch.models.bn254_torch import BN254Device
-    from handel_tpu_torch.ops import bn254_ref as bn
-    from handel_tpu_torch.ops.curve import BN254Curves
-
+    Device = _constructor(curve, lanes).Device
+    ref = Device.ref
     rng = random.Random(seed)
-    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, rng.randrange(1, 1 << 30))) for _ in range(4)]
-    pts = [bn.g1_mul(bn.G1_GEN, rng.randrange(1, bn.R)) for _ in range(k)]
-    eng = BN254Device(pks, batch_size=lanes, device="cpu")
-    eng._combine_curves = BN254Curves(device="cpu", backend=backend)
+    pts = [ref.g1_mul(ref.G1_GEN, rng.randrange(1, ref.R)) for _ in range(k)]
+    pks, _, _ = _range_problem(Device, 4, 0, seed)
+    eng = Device(pks, batch_size=lanes, device="cpu")
+    eng._combine_curves = Device.Curves(device="cpu", backend=backend)
     eng.combine_batch([pts])
     counter, _ = _counted(lambda: eng.combine_batch([pts]))
-    return {"backend": backend, "launch_class": f"combine k={k}", "lanes": lanes,
-            "kernel_launching_ops": counter.launches(), "kernel_calls": counter.counts["kernel"],
-            "scopes": dict(counter.scopes)}
+    return {"curve": curve, "backend": backend, "launch_class": f"combine k={k}",
+            "lanes": lanes, "kernel_launching_ops": counter.launches(),
+            "kernel_calls": counter.counts["kernel"], "scopes": dict(counter.scopes)}
 
 
 def main() -> None:
@@ -203,8 +229,22 @@ def main() -> None:
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--combine-lanes", type=int, default=128)
     ap.add_argument("--rlc-lanes", type=int, default=128)
+    ap.add_argument("--curve", choices=("bn254", "bls12-381"), default="bn254")
+    ap.add_argument("--dense-registry", type=int, default=1024,
+                    help="registry of the BLS12-381 dense count (phase 11's); quarter "
+                         "subsets pack as dense only when their hulls hold more holes "
+                         "than the engine's MISS_CAP")
     args = ap.parse_args()
     torch.set_num_threads(1)
+    if args.curve == "bls12-381":
+        for backend in ("cios", "rns"):
+            print(json.dumps(count_range_launch(backend, args.registry, args.lanes,
+                                                curve=args.curve)), flush=True)
+        print(json.dumps(count_range_launch("cios", args.dense_registry, args.lanes,
+                                            curve=args.curve, dense=True)), flush=True)
+        print(json.dumps(count_combine("cios", args.combine_lanes, curve=args.curve)),
+              flush=True)
+        return
     for backend in ("cios", "rns"):
         print(json.dumps(count_range_launch(backend, args.registry, args.lanes)), flush=True)
     for backend in ("cios", "rns"):

@@ -629,3 +629,88 @@ def test_sim_entry_point_runs_bn254_cuda_on_the_card(card, tmp_path):
         assert kern["device"].startswith("cuda")
         assert kern["launches_in_round"]["fp_mont_mul"] > 0
         assert kern["verifier_launches"] >= 1
+
+
+# -- BLS12-381 (chip_smoke.py phase 11) -----------------------------------------
+
+# the widths the phase-11 launches at 64 lanes give the kernels: the Fermat
+# inverse's 64 columns, the Miller loop's stacked Fp2 products, an Fp12
+# multiply over the 128 pairing lanes and, for B1, the widest stacked G2 add
+# of the 1024-key dense class (18 base products over 1024 x 64 / 2 points)
+BLS_B1_WIDTHS = [64, 1152, 6912, 9 * 1024 * 64]
+BLS_B2_WIDTHS = [64, 768, 1152, 6912]
+
+
+@pytest.mark.parametrize("cols", BLS_B1_WIDTHS)
+def test_b1_at_24_limbs_matches_plain_at_the_bls12_381_widths(card, cols):
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+
+    F = Field(BLS12_381_P, device=card)
+    rng = random.Random(cols)
+    xs = [rng.randrange(BLS12_381_P) for _ in range(cols)]
+    ys = [rng.randrange(BLS12_381_P) for _ in range(cols)]
+    a, b = F.pack(xs), F.pack(ys)
+    before = mont_mul.launches
+    got = F.mul(a, b)
+    assert mont_mul.launches == before + 1
+    assert torch.equal(got, F._mul_plain(a, b))
+
+
+@pytest.mark.parametrize("cols", BLS_B2_WIDTHS)
+def test_b2_at_k_all_65_matches_plain_at_the_bls12_381_widths(card, cols):
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+
+    F = Field(BLS12_381_P, backend="rns", device=card)
+    assert F.k_all == 65
+    a, b = _residues(F, cols, cols).to(card), _residues(F, cols, cols + 7).to(card)
+    before = rns_mul_resident.launches
+    got = F.mul_resident(a, b)
+    assert rns_mul_resident.launches == before + 1
+    assert torch.equal(got, F._mul_resident_core(a, b))
+
+
+@pytest.mark.parametrize("backend", ["cios", "rns"])
+def test_bls12_381_launch_on_card(card, backend):
+    """4-lane BLS12-381 range and dense launches on the card give the host
+    oracle's verdicts; B1 launches on cios, B2 on rns and B1 not there."""
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+    from handel_tpu_torch.models.bls12_381 import (
+        BLS12381Constructor,
+        BLS12381PublicKey,
+        BLS12381Signature,
+        hash_to_g1,
+    )
+    from handel_tpu_torch.models.bls12_381_torch import BLS12381Device
+    from handel_tpu_torch.ops import bls12_381_ref as bls
+
+    rng = random.Random(9)
+    n = 80
+    sks = [rng.randrange(1, 1 << 30) for _ in range(n)]
+    pks = [BLS12381PublicKey(bls.g2_mul(bls.G2_GEN, s)) for s in sks]
+    dev = BLS12381Device(pks, batch_size=4, device=card, fp_backend=backend)
+    assert dev.pairing.resident == (backend == "rns")
+    h = hash_to_g1(b"m")
+
+    def cand(idx, forge=False):
+        bs = BitSet(n)
+        for i in idx:
+            bs.set(i, True)
+        k = (sum(sks[i] for i in idx) + forge) % bls.R
+        return bs, BLS12381Signature(bls.g1_mul(h, k))
+
+    ranges = [cand(range(3, 40)), cand(range(5, 9), forge=True), cand([7, 9, 11])]
+    dense = [cand([0, 79]), cand(range(0, 80, 3)), cand([1, 78], forge=True)]
+    assert dev._pack_requests(ranges).kind == "range"
+    assert dev._pack_requests(dense).kind == "dense"
+    b1, b2 = mont_mul.launches, rns_mul_resident.launches
+    host = BLS12381Constructor()
+    assert dev.batch_verify(b"m", ranges) == host.batch_verify(b"m", pks, ranges) == [
+        True, False, True]
+    assert dev.batch_verify(b"m", dense) == host.batch_verify(b"m", pks, dense) == [
+        True, True, False]
+    if backend == "cios":
+        assert mont_mul.launches > b1 and rns_mul_resident.launches == b2
+    else:
+        assert rns_mul_resident.launches > b2 and mont_mul.launches == b1

@@ -380,7 +380,7 @@ def test_kernel_launch_counts_hold_across_threads():
         for kernel in (MontMulKernel(), RnsMulResidentKernel()):
             def work(k=kernel):
                 for i in range(per_thread):
-                    k._count(128 + i % 7)
+                    k._count(128 + i % 7, 16)
 
             threads = [threading.Thread(target=work) for _ in range(threads_n)]
             for t in threads:
@@ -391,5 +391,6 @@ def test_kernel_launch_counts_hold_across_threads():
             assert kernel.launches == threads_n * per_thread
             assert sum(kernel.widths.values()) == threads_n * per_thread
             assert len(kernel.widths) == 7
+            assert kernel.rows == {16: threads_n * per_thread}
     finally:
         sys.setswitchinterval(old)

@@ -440,10 +440,18 @@ REFERENCE_ALIASES = [
 @pytest.mark.parametrize("name", REFERENCE_ALIASES)
 def test_scheme_table_matches_the_reference(name):
     assert preg.is_device_scheme(name) == r_is_device(name)
-    if name.startswith(("bls", "ed")):
-        item = "6" if name.startswith("bls") else "9"
-        with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
+    if name.startswith("ed"):
+        with pytest.raises(ValueError, match="ROADMAP item 9"):
             preg.new_scheme(name)
+    elif name.startswith("bls"):
+        from handel_tpu_torch.models.bls12_381 import BLS12381Scheme
+        from handel_tpu_torch.models.bls12_381_torch import BLS12381TorchScheme
+
+        if r_is_device(name):
+            s = preg.new_scheme(name, batch_size=4, device="cpu", warmup=False)
+            assert isinstance(s, BLS12381TorchScheme)
+        else:
+            assert type(preg.new_scheme(name)) is BLS12381Scheme
 
 
 def test_device_names_select_the_port_engine():
