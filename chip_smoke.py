@@ -122,12 +122,13 @@ Phases, one line each, any failure exits non-zero with no result line:
   9. sim      the port's entry point as a user runs it, in a subprocess with
               a time limit: python -m handel_tpu_torch.sim --config
               <tmp>/sim.toml --workdir <tmp>, where sim.toml is the repo's
-              results/handel_128_device.toml (128 nodes, threshold 120, two
-              node processes sharing the card, UDP, one shared verifier per
-              process) loaded and dumped by the port's sim/config.py with
-              scheme "bn254-cuda", fp_backend "cios", max_timeout_s 600 and
-              batch_size 128 (the file's 16 lanes would need about 190
-              host-bound launches in each process). The run must exit 0,
+              results/handel_128_device.toml (two node processes sharing
+              the card, UDP, one shared verifier per process) loaded and
+              dumped by the port's sim/config.py with scheme "bn254-cuda",
+              fp_backend "cios", max_timeout_s 600 and batch_size 128 (the
+              file's 16 lanes would need about 190 host-bound launches in
+              each process), and its run cut from 128 nodes to 64, threshold
+              120 to 60, to pay for phase 12. The run must exit 0,
               every node process must print `finished OK` (each node checks
               its own final signature on the host) and a `node process
               kernels` line in which its shared verifier launched at least
@@ -186,13 +187,66 @@ Phases, one line each, any failure exits non-zero with no result line:
               B1's or B2's calls by column count and row count with the sum
               of their bounds, and its peak device memory; the summary line
               the nvidia-smi name and power limit.
+ 12. adversarial  the port's sim on the repo's results/handel_adversarial.toml
+              (64 nodes, threshold 33, 4 node processes sharing the card,
+              UDP, [chaos] drop 0.10, corrupt 0.05, duplicate 0.05, seed 99,
+              4 invalid signers, 2 stale replayers and a flooder at 100
+              packets/s, period 100 ms, timeout 200 ms), as phase 9 runs its
+              config, with scheme "bn254-cuda", fp_backend "cios",
+              shared_verifier, batch_size 128, trace and metrics on,
+              metrics_linger_s 5 and trace_capacity 2^20 (ADV_CHANGES), under
+              a limit of ADV_LIMIT_S. While it runs: each process's endpoint
+              from metrics_ports.json answers /healthz and turns ready on
+              /readyz; a /metrics scrape of each carries the device_verifier
+              plane and the card's memory gauges above 0 (torch.cuda.
+              memory_stats); a /debug/profile capture of 2 s on the first
+              process shows B1's kernel by name. After it: `run 0: success`,
+              `finished OK` in every process, each process's verifier
+              launched and B1 launched in its round; forgeries failed device
+              verdicts (sigVerifyFailed > 0) and were attributed to their
+              senders (peerPenaltyReports > 0), and every origin a scorer
+              banned, if any, is byzantine (whether a ban comes within the
+              round depends on its timing; the ban case below makes one);
+              chaos dropped, corrupted and duplicated packets; no
+              failover, retry or breaker transition; one trace per process
+              naming the service thread and its device lane, each ring
+              unwrapped, with as many launch spans as the CSV's launches;
+              the trace CLI (python -m handel_tpu_torch.sim trace <dir>
+              --critical-path --report r.json) exits 0 and its critical path
+              runs through recv, verify and merge and covers 90% of the time
+              to threshold or more once its node threads' own merges count
+              (a verified candidate waits for the node to merge the batch's
+              earlier candidates, each with a device combine; the CLI's own
+              coverage, which leaves that wait out, is printed beside it).
+              The line adds each launch's queue, pack-and-dispatch,
+              on-device and fetch times from the spans and the lane
+              occupancy.
+     rpc      a VerifierServer on loopback in front of one
+              BatchVerifierService(fallback=None) over phase 4's cios engine;
+              four RPCVerifier clients, standing for hosts without a card,
+              each ship 32 range candidates with phase 4's forged lanes at
+              once: the verdicts as known by construction and as a direct
+              launch of the same candidates, in one launch of 128. Then a
+              request in flight when the server stops and its link is cut
+              fails with a ConnectionError, and the client's next call, after
+              the server restarts on its port, reconnects and gets its
+              verdicts.
+     ban      node 0 of phase 4's registry, a Handel node verifying through
+              one BatchVerifierService(fallback=None) over phase 4's cios
+              engine, receives 12 content-distinct aggregates from the
+              invalid signer at the top of its level 5 (ids 16..31): the
+              signer's forged signature alone, then beside one honest
+              signature each. One launch of the 12 on the card rejects them
+              all, the node's scorer bans the signer (12 reports over the
+              ban score of 8), and the signer's next packet dies at
+              validation.
 
-Each path of phases 4, 6, 7, 8, 10 and 11 is one main-path run: every kernel's
-launch count is set to 0 just before it and read just after; phase 9's
-counts are the node processes' own, which start at 0. Then one JSON line of
-kernel figures, the seconds each phase took (`phases`), the total, the
-nvidia-smi line again, and last {"ok": true, "device": {...}}. Exits
-non-zero without a CUDA device.
+Each path of phases 4, 6, 7, 8, 10, 11 and 12's RPC and ban cases is one
+main-path run: every kernel's launch count is set to 0 just before it and
+read just after; phases 9's and 12's sim counts are the node processes'
+own, which start at 0. Then one JSON line of kernel figures, the seconds
+each phase took (`phases`), the total, the nvidia-smi line again, and last
+{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -257,8 +311,35 @@ BLS_B2_WIDTHS = {"bls_f12_mul": 54 * 2 * BLS_LANES, "bls_768": 12 * BLS_LANES,
 SIM_CONFIG = "results/handel_128_device.toml"
 SIM_CHANGES = {"scheme": "bn254-cuda", "fp_backend": "cios", "max_timeout_s": 600.0,
                "batch_size": LANES}
+# ... and its run cut from 128 nodes to 64 (threshold 120 to 60, the same
+# 15/16 of the committee) to pay for phase 12
+SIM_RUN_CHANGES = {"nodes": 64, "threshold": 60}
 # the subprocess's own limit: a stalled barrier fails inside max_timeout_s
 SIM_LIMIT_S = 660.0
+# phase 12: the repo's adversarial config (64 nodes, threshold 33, 4 node
+# processes, UDP, [chaos], 7 byzantine nodes) through the port's sim entry
+# point, traced and scraped, with these changes. The ring holds the whole
+# run, so that every launch span is in the trace (the file's default of
+# 2^16 events per process would keep only the run's last window).
+ADV_CONFIG = "results/handel_adversarial.toml"
+ADV_CHANGES = {"scheme": "bn254-cuda", "fp_backend": "cios", "shared_verifier": True,
+               "batch_size": LANES, "trace": True, "metrics": True,
+               "metrics_linger_s": 5.0, "trace_capacity": 1 << 20}
+# its subprocess limit, below the config's max_timeout_s of 600
+ADV_LIMIT_S = 540.0
+# the /debug/profile capture's seconds, and how many captures may miss B1
+PROFILE_S = 2.0
+PROFILE_TRIES = 3
+# the verifier RPC case: clients standing for hosts without a card, each
+# shipping RPC_CANDIDATES range candidates at once
+RPC_CLIENTS = 4
+RPC_CANDIDATES = LANES // RPC_CLIENTS
+# phase 12's ban case: node 0's level of ids 16..31 in phase 4's registry,
+# the invalid signer's forged aggregates (over PeerScorer's ban score of 8),
+# and the seconds its one launch may take
+BAN_LEVEL = 5
+BAN_FORGED = 12
+BAN_LIMIT_S = 120.0
 # a secret key outside the round's registry (its keys come from
 # new_keypair(seed=i), SHA-256 derived): the forger of phase 7
 FORGER_SCALAR = 0x5EED_F0E6
@@ -1395,6 +1476,8 @@ def sim_phase() -> dict:
     for key, value in SIM_CHANGES.items():
         setattr(cfg, key, value)
     run = cfg.runs[0]
+    for key, value in SIM_RUN_CHANGES.items():
+        setattr(run, key, value)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_") as tmp:
         cfg_path = os.path.join(tmp, "sim.toml")
         with open(cfg_path, "w") as f:
@@ -1464,7 +1547,8 @@ def sim_phase() -> dict:
         raise AssertionError(f"sim: B1 did not launch in every node process: {processes}")
     dispatch_calls = col["device_dispatch_dispatchCalls_sum"]
     fig = {
-        "config": SIM_CONFIG, "reduced": SIM_CHANGES, "nodes": run.nodes,
+        "config": SIM_CONFIG, "reduced": {**SIM_CHANGES, **SIM_RUN_CHANGES},
+        "nodes": run.nodes,
         "threshold": run.resolved_threshold(), "processes": run.processes,
         "network": cfg.network, "shared_verifier": cfg.shared_verifier,
         "period_ms": run.handel.period_ms, "timeout_ms": run.handel.timeout_ms,
@@ -1489,6 +1573,522 @@ def sim_phase() -> dict:
         "b1_launches_in_round": sum(p["launches_in_round"]["fp_mont_mul"] for p in processes),
     }
     line("sim", **fig)
+    return fig
+
+
+def http(url: str, method: str = "GET", timeout: float = 10.0) -> tuple[int, bytes]:
+    """(status, body) of one request to a node's metrics endpoint; status 0
+    when it does not answer."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method, data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+    except OSError:
+        return 0, b""
+
+
+def scrape_phase(tmp: str, proc, deadline: float) -> dict:
+    """Phase 12's live checks, while its sim runs: each node process's
+    endpoint (metrics_ports.json) answers /healthz and turns ready; one
+    /metrics scrape of each carries the device_verifier plane and the
+    card's memory gauges above 0; a /debug/profile capture of
+    PROFILE_S seconds on the first process, once every process is ready,
+    shows B1's kernel by name (PROFILE_TRIES captures at most). Returns the
+    figures."""
+    from handel_tpu_torch.core.metrics import parse_exposition
+
+    def wait(what, cond):
+        while not cond():
+            if proc.poll() is not None:
+                raise AssertionError(f"adversarial: the sim ended before {what}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"adversarial: no {what} within the limit")
+            time.sleep(0.25)
+
+    ports_file = os.path.join(tmp, "metrics_ports.json")
+    wait("metrics_ports.json", lambda: os.path.exists(ports_file))
+    time.sleep(0.5)  # written before the node processes spawn: let it close
+    with open(ports_file) as f:
+        addresses = json.load(f)["addresses"]
+    t0 = time.monotonic()
+    for addr in addresses.values():
+        wait(f"/healthz at {addr}", lambda a=addr: http(f"http://{a}/healthz")[0] == 200)
+    healthy_s = time.monotonic() - t0
+    for addr in addresses.values():
+        wait(f"/readyz 200 at {addr}", lambda a=addr: http(f"http://{a}/readyz")[0] == 200)
+    ready_s = time.monotonic() - t0
+    time.sleep(3.0)  # past the START barrier: the round is on the card
+    scrapes = {}
+    for pidx, addr in addresses.items():
+        status, body = http(f"http://{addr}/metrics")
+        if status != 200:
+            raise AssertionError(f"adversarial: /metrics at {addr} answered {status}")
+        fams = parse_exposition(body.decode())
+        verifier = sorted(k for k in fams if k.startswith("handel_device_verifier_"))
+        mem = {k: fams[k]["samples"][0][1] for k in (
+            "handel_device_mem_bytes_in_use", "handel_device_mem_bytes_reserved",
+            "handel_device_mem_bytes_peak") if k in fams}
+        if not verifier:
+            raise AssertionError(f"adversarial: no device_verifier plane at {addr}")
+        if len(mem) != 3 or not all(v > 0 for v in mem.values()):
+            raise AssertionError(f"adversarial: device memory gauges at {addr}: {mem}")
+        scrapes[pidx] = {"families": len(fams), "device_verifier_families": len(verifier),
+                         **{k[len("handel_device_"):]: v for k, v in mem.items()}}
+    first = addresses[min(addresses, key=int)]
+    profiles = []
+    for _ in range(PROFILE_TRIES):
+        status, body = http(f"http://{first}/debug/profile?seconds={PROFILE_S}", "POST",
+                            timeout=60.0 + PROFILE_S)
+        if status != 200:
+            raise AssertionError(f"adversarial: /debug/profile answered {status}: {body[:300]}")
+        with open(os.path.join(json.loads(body)["trace"], "kernels.json")) as f:
+            kernels = json.load(f)
+        b1 = [v for k, v in kernels.items() if "mont_mul_kernel" in k]
+        profiles.append({"kernels": len(kernels), "activities": sum(c for c, _ in kernels.values()),
+                         "device_ms": sum(ms for _, ms in kernels.values()),
+                         "b1_calls": sum(c for c, _ in b1), "b1_ms": sum(ms for _, ms in b1)})
+        if b1:
+            break
+    else:
+        raise AssertionError(f"adversarial: {PROFILE_TRIES} profile captures without B1: {profiles}")
+    return {"healthy_s": healthy_s, "ready_s": ready_s, "scrapes": scrapes,
+            "profile_s": PROFILE_S, "profiles": profiles}
+
+
+def thread_coverage(events: list, cp: dict) -> float:
+    """The critical path's coverage of the time to threshold with the merge
+    spans of the chain's own node threads counted beside the chain's spans.
+    On the card a verified candidate waits for its node to merge the
+    batch's earlier candidates, each with its device combine, before its
+    own merge; the chain leaves that wait out of the trace CLI's
+    `coverage`, and the node's own merge spans fill it."""
+    from handel_tpu_torch.sim import trace_cli
+
+    start, end = cp["start_ts"], cp["threshold_ts"]
+    threads = {(e["pid"], e["tid"]) for e in cp["chain"]}
+    ivs = [(start + e["t_ms"] * 1e3, min(start + (e["t_ms"] + e["dur_ms"]) * 1e3, end))
+           for e in cp["chain"]]
+    ivs += [(max(e["ts"], start), min(e["ts"] + e["dur"], end)) for e in events
+            if e.get("ph") == "X" and e["name"] == "merge"
+            and (e["pid"], e["tid"]) in threads and e["ts"] < end and e["ts"] + e["dur"] > start]
+    return trace_cli._interval_union(ivs) / (end - start)
+
+
+def trace_phase(trace_dir: str, processes: int, launches: float) -> dict:
+    """Phase 12's trace checks: one trace per node process, each naming the
+    service thread (SERVICE_TID) and its device lane, with its ring
+    unwrapped; their launch spans (`device_verify`) as many as the CSV's
+    verifier launches; the trace CLI exits 0 and its critical path, a
+    chain through recv, verify and merge, covers at least
+    90% of the time to threshold with its node threads' own merges counted
+    (`thread_coverage`; the CLI's own coverage is reported beside it).
+    Returns each launch's queue,
+    pack-and-dispatch, on-device and fetch milliseconds from the spans, and
+    the lanes' occupancy."""
+    from handel_tpu_torch.core.trace import SERVICE_TID
+    from handel_tpu_torch.sim import trace_cli
+
+    files = sorted(os.listdir(trace_dir))
+    traces = [f for f in files if f.startswith("trace_") and f.endswith(".json")]
+    if len(traces) != processes:
+        raise AssertionError(f"adversarial: {len(traces)} traces for {processes} processes")
+    spans: dict[str, list[float]] = {}
+    events_by_file = {}
+    for name in traces:
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        threads = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+        if threads.get(SERVICE_TID) != "batch-verifier" or threads.get(-2) != "device-lane-0":
+            raise AssertionError(f"adversarial: {name} names no service or lane thread: "
+                                 f"{ {k: v for k, v in threads.items() if k < 0} }")
+        recorded = sum(1 for e in events if e["ph"] != "M")
+        if recorded >= ADV_CHANGES["trace_capacity"]:
+            raise AssertionError(f"adversarial: {name}'s ring wrapped ({recorded} events)")
+        events_by_file[name] = recorded
+        for e in events:
+            if e["ph"] == "X" and e["name"] in ("launch_queued", "dispatch_pack",
+                                                "launch_on_device", "device_verify"):
+                spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    launch_spans = len(spans.get("device_verify", []))
+    if launch_spans != launches:
+        raise AssertionError(f"adversarial: {launch_spans} launch spans, the CSV "
+                             f"{launches} launches")
+    report_path = os.path.join(trace_dir, "report.json")
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "handel_tpu_torch.sim", "trace", trace_dir,
+                          "--critical-path", "--report", report_path],
+                         capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f"adversarial: trace CLI exit {cli.returncode}\n{cli.stderr[-3000:]}")
+    with open(report_path) as f:
+        report = json.load(f)
+    cp = report["critical_path"]
+    if cp is None or not {"recv", "verify", "merge"} <= {e["name"] for e in cp["chain"]}:
+        raise AssertionError("adversarial: no critical path through recv, verify and merge")
+    if min(cp["stages_ms"].values()) < 0:
+        raise AssertionError(f"adversarial: a negative stage on the critical path: {cp}")
+    events = trace_cli.load_traces([trace_dir])
+    covered = thread_coverage(events, cp)
+    if covered < 0.90:
+        raise AssertionError(f"adversarial: critical path covers {covered} (CLI: "
+                             f"{cp['coverage']}) of the time to threshold, under 0.90")
+    occupancy = trace_cli.lane_occupancy(events)
+
+    def summary(xs):
+        xs = sorted(xs)
+        return {"n": len(xs), "p50": statistics.median(xs) if xs else None,
+                "max": xs[-1] if xs else None, "sum": sum(xs)}
+
+    return {
+        "events_by_file": events_by_file, "launch_spans": launch_spans,
+        "per_launch_ms": {"queued": summary(spans.get("launch_queued", [])),
+                          "pack_and_dispatch": summary(spans.get("dispatch_pack", [])),
+                          "on_device": summary(spans.get("launch_on_device", [])),
+                          "fetch": summary(spans.get("device_verify", []))},
+        "lane_occupancy": occupancy, "trace_cli_s": cli_s,
+        "time_to_threshold_s": report["time_to_threshold_s"],
+        "critical_path": {**{k: cp[k] for k in ("wall_ms", "coverage", "hops", "stages_ms")},
+                          "coverage_with_node_merges": covered,
+                          "chain": [e["name"] for e in cp["chain"]]},
+        "flow_linkage": report["flow_linkage"],
+    }
+
+
+def adversarial_phase() -> dict:
+    """Phase 12: the port's sim on the repo's adversarial config (module
+    docstring), traced and with its metrics endpoints on, in a subprocess of
+    its own process group under ADV_LIMIT_S; scraped while it runs
+    (`scrape_phase`), then its outputs, CSV and traces checked
+    (`trace_phase`). Raises on any failed check; returns the figures."""
+    from handel_tpu_torch.sim.config import dump_config, load_config
+
+    root = Path(__file__).resolve().parent
+    cfg = load_config(str(root / ADV_CONFIG))
+    for key, value in ADV_CHANGES.items():
+        setattr(cfg, key, value)
+    run = cfg.runs[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_adv_") as tmp:
+        cfg_path = os.path.join(tmp, "sim.toml")
+        with open(cfg_path, "w") as f:
+            f.write(dump_config(cfg))
+        env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
+        cmd = [sys.executable, "-m", "handel_tpu_torch.sim", "--config", cfg_path,
+               "--workdir", tmp]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + ADV_LIMIT_S
+        with open(os.path.join(tmp, "sim.out"), "w") as out_f, \
+                open(os.path.join(tmp, "sim.err"), "w") as err_f:
+            proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out_f, stderr=err_f,
+                                    text=True, start_new_session=True)
+            try:
+                live = scrape_phase(tmp, proc, deadline)
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"adversarial: no result within {ADV_LIMIT_S} s")
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        wall_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "sim.out")) as f:
+            out = f.read()
+        logs = {}
+        for name in sorted(os.listdir(tmp)):
+            if name.startswith("node_0_") and name.endswith((".out", ".err")):
+                with open(os.path.join(tmp, name)) as f:
+                    logs[name] = f.read()
+        if proc.returncode != 0 or "run 0: success" not in out:
+            with open(os.path.join(tmp, "sim.err")) as f:
+                err = f.read()
+            tails = "\n".join(f"--- {k}\n{v[-3000:]}" for k, v in logs.items())
+            raise AssertionError(
+                f"adversarial: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}\n{tails}")
+        processes = []
+        for name, text in logs.items():
+            if not name.endswith(".out"):
+                continue
+            if "node process finished OK" not in text:
+                raise AssertionError(f"adversarial: {name} has no `finished OK` line")
+            (kern,) = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+                       if ln.startswith("node process kernels: ")]
+            processes.append(kern)
+        banned = sorted({int(m) for text in logs.values()
+                         for m in re.findall(r"origin (\d+) is banned", text)})
+        with open(os.path.join(tmp, "results_0.csv"), newline="") as f:
+            header, row = list(csv.reader(f))[:2]
+        col = dict(zip(header, map(float, row)))
+        launches = col["device_verifier_verifierLaunches_sum"]
+        traced = trace_phase(os.path.join(tmp, "trace_0"), run.processes, launches)
+    if len(processes) != run.processes:
+        raise AssertionError(f"adversarial: {len(processes)} node processes, "
+                             f"expected {run.processes}")
+    per_process = [p["verifier_launches"] for p in processes]
+    if not all(n and n >= 1 for n in per_process):
+        raise AssertionError(f"adversarial: verifier launches by process {per_process}")
+    if any(p["launches_in_round"]["fp_mont_mul"] == 0 for p in processes):
+        raise AssertionError(f"adversarial: B1 did not launch in every process in the round")
+    if not col["sigs_sigVerifyFailed_sum"] > 0:
+        raise AssertionError("adversarial: no forgery failed a device verdict")
+    if not col["sigs_peerPenaltyReports_sum"] > 0:
+        raise AssertionError("adversarial: no failure was attributed to a peer")
+    from handel_tpu_torch.sim.adversary import adversary_roles
+
+    roles = adversary_roles(run.adversaries.counts(), run.nodes)
+    if any(b not in roles for b in banned):
+        raise AssertionError(f"adversarial: banned origins {banned}, byzantine {roles}")
+    for k in ("chaosDropped", "chaosCorrupted", "chaosDuplicated"):
+        if not col[f"net_{k}_sum"] > 0:
+            raise AssertionError(f"adversarial: net_{k}_sum = {col[f'net_{k}_sum']}")
+    for k in ("failoverBatches", "deviceRetryCt", "breakerTransitionsCt"):
+        if col[f"device_verifier_{k}_sum"] != 0:
+            raise AssertionError(f"adversarial: device_verifier_{k}_sum = "
+                                 f"{col[f'device_verifier_{k}_sum']}")
+    dispatch_calls = col["device_dispatch_dispatchCalls_sum"]
+    fig = {
+        "config": ADV_CONFIG, "changed": ADV_CHANGES, "nodes": run.nodes,
+        "threshold": run.resolved_threshold(), "processes": run.processes,
+        "network": cfg.network, "chaos": {k: getattr(cfg.chaos, k) for k in (
+            "drop_rate", "corrupt_rate", "duplicate_rate", "seed")},
+        "roles": {r: sum(1 for v in roles.values() if v == r) for r in set(roles.values())},
+        "period_ms": run.handel.period_ms, "timeout_ms": run.handel.timeout_ms,
+        "wall_s": wall_s, "launches": launches,
+        "candidates": col["device_verifier_verifierCandidates_sum"],
+        "launch_fill_avg": col["device_verifier_launchFillRatio_avg"],
+        "dedup_hits": col["device_verifier_dedupHits_sum"],
+        "sigen_wall_avg_s": col["sigen_wall_avg"], "sigen_wall_max_s": col["sigen_wall_max"],
+        "launch_time_ms_avg": col["device_launch_launchTimeMs_avg"],
+        "dispatch_ms_per_call": col["device_dispatch_dispatchTimeMs_sum"] / max(1.0, dispatch_calls),
+        "host_pack_ms_per_launch": col["device_verifier_hostPackMsPerLaunch_avg"],
+        "host_dispatch_ms_per_launch": col["device_verifier_hostDispatchMsPerLaunch_avg"],
+        "sig_verify_failed": col["sigs_sigVerifyFailed_sum"],
+        "penalty_reports": col["sigs_peerPenaltyReports_sum"],
+        "peers_banned": col["sigs_peersBanned_sum"], "banned_origins": banned,
+        "chaos_counts": {k: col[f"net_{k}_sum"] for k in (
+            "chaosDropped", "chaosCorrupted", "chaosDuplicated")},
+        "flooded": col["sigs_advFloodedCt_sum"], "replayed": col["sigs_advReplayedCt_sum"],
+        "combine_device_groups": col["sigs_combineDeviceGroups_sum"],
+        "device_combine_s": [p["device_combine"]["combineTimeMs"] / 1000.0 for p in processes],
+        "verifier_launches_by_process": per_process,
+        "node_processes": processes,
+        "b1_launches": sum(p["launches"]["fp_mont_mul"] for p in processes),
+        "b1_launches_in_round": sum(p["launches_in_round"]["fp_mont_mul"] for p in processes),
+        "live": live, "trace": traced,
+    }
+    line("adversarial", **fig)
+    return fig
+
+
+def cut_link(client) -> None:
+    """Cut a client's live link to a VerifierServer from outside, as a lost
+    host or cable would: its socket shut down both ways, so each end reads
+    end-of-file."""
+    import socket
+
+    client._writer.get_extra_info("socket").shutdown(socket.SHUT_RDWR)
+
+
+def rpc_phase(cons, pks, sks, counters, prng) -> dict:
+    """Phase 12's RPC case, one main-path run: a VerifierServer on loopback
+    in front of one BatchVerifierService(fallback=None) over phase 4's cios
+    engine; RPC_CLIENTS RPCVerifier clients, standing for hosts without a
+    card, each ship RPC_CANDIDATES range candidates with phase 4's forged
+    lanes at once: the verdicts as known by construction and as a direct
+    launch of the same candidates gives them, fused into one launch. Then
+    the link-loss path: the first client's next request in flight, the
+    server stops and the link is cut; the request fails with a
+    ConnectionError, and after the server restarts on its port the client's
+    next call reconnects and gets its verdicts. Returns the figures."""
+    import asyncio
+
+    import torch
+
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+    from handel_tpu_torch.parallel.rpc_verifier import RPCVerifier, VerifierServer
+
+    engine = cons._device
+    batches = [make_requests("range", sks, RPC_CANDIDATES, prng, cons.Device)
+               for _ in range(RPC_CLIENTS)]
+    lost_reqs, lost_expect = make_requests("range", sks, 4, prng, cons.Device)
+    every = [r for reqs, _ in batches for r in reqs]
+    expect = [e for _, exp in batches for e in exp]
+    # each client's empty-bitset lane (lane 3) is one content: the service
+    # verifies it once, beside the distinct candidates
+    distinct = len({(bs.marshal(), sig.marshal()) for bs, sig in every})
+    svc = BatchVerifierService(engine, fallback=None, max_delay_ms=500.0)
+
+    async def go():
+        server = VerifierServer(svc, cons, host="127.0.0.1")
+        await server.start()
+        clients = [RPCVerifier(f"127.0.0.1:{server.port}", retry_delay=0.05)
+                   for _ in range(RPC_CLIENTS)]
+        try:
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(c.verify(MSG, None, reqs)
+                                         for c, (reqs, _) in zip(clients, batches)))
+            fused_s = time.perf_counter() - t0
+            fused = svc.values()
+            # the link-loss path
+            lost = asyncio.ensure_future(clients[0].verify(MSG, None, lost_reqs))
+            await asyncio.sleep(0.5)
+            server.stop()
+            cut_link(clients[0])
+            try:
+                await asyncio.wait_for(lost, 30.0)
+                raise AssertionError("rpc: the request in flight survived the lost link")
+            except ConnectionError as e:
+                failed = repr(e)
+            port = server.port
+            server = VerifierServer(svc, cons, host="127.0.0.1", port=port)
+            await server.start()
+            again = await clients[0].verify(MSG, None, lost_reqs)
+            return got, fused_s, fused, failed, again, [c.values() for c in clients], \
+                server.values()
+        finally:
+            for c in clients:
+                c.stop()
+            server.stop()
+            svc.stop()
+
+    zero_counts(counters)
+    got, fused_s, fused, failed, again, client_values, served = asyncio.run(go())
+    launches = {k: c.launches for k, c in counters.items()}
+    direct = cons.batch_verify(MSG, pks, every)
+    torch.cuda.synchronize(engine.device)
+    flat = [v for verdicts in got for v in verdicts]
+    fig = {"clients": RPC_CLIENTS, "candidates": len(every), "distinct": distinct,
+           "fused_s": fused_s, "fused_launches": fused["verifierLaunches"],
+           "fused_candidates": fused["verifierCandidates"],
+           "fused_dedup_hits": fused["dedupHits"],
+           "launch_fill": fused["launchFillRatio"], "link_loss": failed,
+           "after_reconnect": again == lost_expect, "client_values": client_values,
+           "restarted_server_values": served, "kernel_launches": launches,
+           "widths": width_histograms(counters)}
+    line("rpc", **fig)
+    if flat != expect or flat != list(direct):
+        bad = [j for j, (g, e, d) in enumerate(zip(flat, expect, direct)) if g != e or g != d]
+        raise AssertionError(f"rpc: verdicts differ from the known and direct ones at {bad}")
+    if (fused["verifierLaunches"] != 1 or fused["verifierCandidates"] != distinct
+            or fused["dedupHits"] != len(every) - distinct):
+        raise AssertionError(f"rpc: {fused['verifierLaunches']} launches of "
+                             f"{fused['verifierCandidates']} candidates, not one of {distinct}")
+    if again != lost_expect:
+        raise AssertionError(f"rpc: verdicts after reconnecting {again} != {lost_expect}")
+    service_checks("rpc", fused)
+    if launches["fp_mont_mul"] == 0:
+        raise AssertionError("the rpc case never launched B1")
+    for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
+        if launches[k] != 0:
+            raise AssertionError(f"the rpc case launched {k} {launches[k]} times")
+    return fig
+
+
+def ban_case(cons, pks, sks, counters) -> dict:
+    """Phase 12's ban case, one main-path run: node 0 of phase 4's registry,
+    a Handel node that verifies through one BatchVerifierService(fallback=
+    None) over phase 4's cios engine, receives BAN_FORGED content-distinct
+    aggregates from the invalid signer at the top of its level BAN_LEVEL,
+    as that role forwards them: its forged signature (sim/adversary.py
+    forged_signature) alone, then beside one honest signature each. One
+    launch on the card rejects every one, the node's scorer bans the signer
+    (BAN_FORGED reports over its ban score), and the signer's next packet
+    dies at validation. Raises on any failed check; returns the figures."""
+    import asyncio
+
+    import torch
+
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.core.config import Config
+    from handel_tpu_torch.core.crypto import MultiSignature
+    from handel_tpu_torch.core.handel import Handel
+    from handel_tpu_torch.core.identity import ArrayRegistry, Identity
+    from handel_tpu_torch.core.net import Packet
+    from handel_tpu_torch.core.test_harness import InProcessNetwork, InProcessRouter
+    from handel_tpu_torch.models.bn254 import BN254SecretKey
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+    from handel_tpu_torch.sim.adversary import forged_signature
+
+    engine = cons._device
+    registry = ArrayRegistry([Identity(i, f"ban-{i}", pk) for i, pk in enumerate(pks)])
+    svc = BatchVerifierService(engine, fallback=None)
+    cfg = Config()
+    cfg.verifier, cfg.batch_size = svc.verify, LANES
+    router = InProcessRouter()
+    own = BN254SecretKey(sks[0]).sign(MSG)
+
+    async def go():
+        h = Handel(InProcessNetwork(router, "ban-0"), registry, registry.identity(0),
+                   cons, MSG, own, cfg)
+        lvl = h.levels[BAN_LEVEL]
+        signer = max(ident.id for ident in lvl.nodes)
+        forged = forged_signature(BN254SecretKey(sks[signer]), MSG)
+        honest = [ident.id for ident in lvl.nodes if ident.id != signer][:BAN_FORGED - 1]
+        aggregates = [({signer}, forged)] + [
+            ({signer, j}, forged.combine(BN254SecretKey(sks[j]).sign(MSG))) for j in honest]
+        net = InProcessNetwork(router, f"ban-{signer}")
+
+        def packet(members, sig):
+            bs = BitSet(len(lvl.nodes))
+            for i in members:
+                bs.set(h.partitioner.index_at_level(i, BAN_LEVEL), True)
+            return Packet(origin=signer, level=BAN_LEVEL,
+                          multisig=MultiSignature(bs, sig).marshal())
+
+        h.proc.start()
+        try:
+            t0 = time.perf_counter()
+            for members, sig in aggregates:
+                net.send([registry.identity(0)], packet(members, sig))
+            while h.proc.sig_verify_failed < len(aggregates):
+                if time.perf_counter() - t0 > BAN_LIMIT_S:
+                    raise AssertionError(f"ban: {h.proc.sig_verify_failed} of "
+                                         f"{len(aggregates)} verdicts in {BAN_LIMIT_S} s")
+                await asyncio.sleep(0.05)
+            wall_s = time.perf_counter() - t0
+            banned = [i for i in range(len(pks)) if h.scorer.banned(i)]
+            before = h.banned_packet_ct
+            net.send([registry.identity(0)], packet(*aggregates[0]))
+            await asyncio.sleep(0.05)
+            return {"signer": signer, "level": BAN_LEVEL, "forged": len(aggregates),
+                    "wall_s": wall_s, "sig_verify_failed": h.proc.sig_verify_failed,
+                    "sig_checked": h.proc.sig_checked_ct, "banned": banned,
+                    "score": h.scorer.score(signer), "ban_score": h.scorer.ban_threshold,
+                    "dropped_after_ban": h.banned_packet_ct - before}
+        finally:
+            h.proc.stop()
+            svc.stop()
+
+    zero_counts(counters)
+    fig = asyncio.run(go())
+    torch.cuda.synchronize(engine.device)
+    launches = {k: c.launches for k, c in counters.items()}
+    served = svc.values()
+    fig.update(service_launches=served["verifierLaunches"],
+               service_candidates=served["verifierCandidates"],
+               kernel_launches=launches, widths=width_histograms(counters))
+    line("ban", **fig)
+    if (fig["sig_verify_failed"], fig["sig_checked"]) != (fig["forged"], fig["forged"]):
+        raise AssertionError(f"ban: {fig['sig_verify_failed']} failed of "
+                             f"{fig['sig_checked']} checked, {fig['forged']} forged")
+    if served["verifierLaunches"] != 1 or served["verifierCandidates"] != fig["forged"]:
+        raise AssertionError(f"ban: {served['verifierLaunches']} launches of "
+                             f"{served['verifierCandidates']} candidates")
+    if fig["banned"] != [fig["signer"]] or fig["dropped_after_ban"] != 1:
+        raise AssertionError(f"ban: banned {fig['banned']}, {fig['dropped_after_ban']} "
+                             f"packets dropped after the ban")
+    service_checks("ban", served)
+    if launches["fp_mont_mul"] == 0:
+        raise AssertionError("the ban case never launched B1")
+    for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
+        if launches[k] != 0:
+            raise AssertionError(f"the ban case launched {k} {launches[k]} times")
     return fig
 
 
@@ -2002,6 +2602,13 @@ def main() -> int:
     done("rlc")
     bls = bls_phase(dev, counters)
     done("bls12_381")
+    torch.cuda.empty_cache()  # phase 12's node processes share the card
+    adv = adversarial_phase()
+    done("adversarial")
+    rpc = rpc_phase(cons, pks, sks, counters, prng)
+    done("rpc")
+    ban = ban_case(cons, pks, sks, counters)
+    done("ban")
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
@@ -2056,7 +2663,14 @@ def main() -> int:
               on_sim={"launches": sim["b1_launches"],
                       "launches_in_round": sim["b1_launches_in_round"]},
               on_rlc=on_rlc("fp_mont_mul"),
-              on_bls12_381=on_bls("fp_mont_mul", "cios", k24)),
+              on_bls12_381=on_bls("fp_mont_mul", "cios", k24),
+              on_adversarial_sim={"launches": adv["b1_launches"],
+                                  "launches_in_round": adv["b1_launches_in_round"],
+                                  "profiled_calls": adv["live"]["profiles"][-1]["b1_calls"]},
+              on_rpc={"launches": rpc["kernel_launches"]["fp_mont_mul"],
+                      "widths": rpc["widths"].get("fp_mont_mul", {})},
+              on_ban_case={"launches": ban["kernel_launches"]["fp_mont_mul"],
+                           "widths": ban["widths"].get("fp_mont_mul", {})}),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],

@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of handel_tpu: the Handel protocol core, the shared
 batch verifier, BLS-over-BN254 batch verification on the CIOS and the RNS
 field backends, per candidate or by the RLC batch check, and the sim's
-localhost run path.
+localhost run path with its faults (chaos, byzantine roles) and its
+observability (span traces, the metrics endpoint).
 
 The JAX package (`handel_tpu`) stays the reference. This package imports
 torch and numpy, never jax and nothing of `handel_tpu`; module names mirror
@@ -30,7 +31,10 @@ the reference so each counterpart is easy to find:
                          the engine; the JAX package's device names too)
   parallel/              the shared batch verifier (batch_verifier.py:
                          BatchVerifierService) over a device plane
-                         (plane.py), with its mode policy (mesh_plane.py)
+                         (plane.py), with its mode policy (mesh_plane.py),
+                         its TCP front for hosts without a card
+                         (rpc_verifier.py) and the card's telemetry
+                         (telemetry.py)
   service/               the tenant queue (fairness.py) and the host-math
                          device engine (driver.py: HostDevice)
   csrc/, kernels/        the hand-written CUDA sources and their nvcc build
@@ -38,12 +42,17 @@ the reference so each counterpart is easy to find:
                          store, the batched verify pipeline and its
                          device-combine shim (processing.py), partitioner,
                          packets, config, timeouts, peer scoring, bitset,
-                         scheme interfaces, and the in-process harness
-                         (test_harness.py: LocalCluster)
-  network/               the UDP and TCP transports and their wire codecs
+                         scheme interfaces, the in-process harness
+                         (test_harness.py: LocalCluster), the span flight
+                         recorder (trace.py) and the metrics plane
+                         (metrics.py)
+  network/               the UDP and TCP transports, their wire codecs and
+                         the fault-injecting ChaosNetwork (chaos.py)
   sim/                   python -m handel_tpu_torch.sim: TOML config, keygen
                          and registry CSV, node processes behind UDP
-                         barriers, the monitor's results CSV
+                         barriers, the monitor's results CSV, byzantine
+                         roles (adversary.py) and the trace analyzer
+                         (trace_cli.py, the `trace` subcommand)
   utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
                          (the sim's processes: $HANDEL_TORCH_DEVICE)
   utils/breaker.py       the circuit breaker of the service's device lanes

@@ -10,9 +10,9 @@ DefaultUpdateCount=1, config.go:87-97), merge-with-default (:128-165), and
 Beyond the reference: `batch_size` (max signatures per device verify
 launch), `verifier` (an async batch verifier in place of the scheme's own
 `batch_verify`), and the peer-penalty and flood bounds. Fields of the JAX
-package's Config that serve planes the port has not ported yet (the span
-recorder, sessions, epochs, regions, stake weights, the windowed store and
-the simulated verify sleep) are not here, nor are its factory hooks that no
+package's Config that serve planes the port has not ported yet
+(sessions, epochs, regions, stake weights, the windowed store and the
+simulated verify sleep) are not here, nor are its factory hooks that no
 caller of the port sets (bitset, partitioner, evaluator, processing and
 scorer factories, and the peer-penalty switch): a node always builds
 `BitSet`, `BinomialPartitioner`, the store as its evaluator,
@@ -72,6 +72,13 @@ class Config:
     # pending candidate is dropped, so a flooder bounds host memory instead
     # of growing it (core/processing.py)
     max_pending: int = DEFAULT_MAX_PENDING
+
+    # -- observability (core/trace.py) -------------------------------------
+    # span flight recorder following every contribution recv -> queue ->
+    # verify -> merge; None disables tracing (the hooks cost one None check
+    # per contribution). Shared across co-located nodes — each node records
+    # under its own id as the Chrome-trace tid.
+    recorder: Optional[object] = None
 
     # -- batch verification ------------------------------------------------
     # max candidates per device verification launch

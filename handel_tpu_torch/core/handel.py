@@ -13,9 +13,8 @@ in-process. Verified signatures flow back via a direct callback
 (`_on_verified`) instead of a channel.
 
 Cut from the JAX package's Handel, with the planes they serve (ROADMAP):
-the span flight recorder's hooks, stake-weighted thresholds, departures of
-members mid-round, sessions and epochs, the windowed store and the external
-timer wheel.
+stake-weighted thresholds, departures of members mid-round, sessions and
+epochs, the windowed store and the external timer wheel.
 """
 
 from __future__ import annotations
@@ -205,6 +204,18 @@ class Handel:
         self.best: MultiSignature | None = None
         self.final_signatures: asyncio.Queue[MultiSignature] = asyncio.Queue()
 
+        # span flight recorder (core/trace.py): shared across co-located
+        # nodes, this node's events keyed by its id as the Chrome-trace tid.
+        # None = tracing off; the hot-path hooks cost one None check.
+        self.rec = self.c.recorder
+        self._tid = identity.id
+        if self.rec is not None:
+            self.rec.name_thread(self._tid, f"node-{identity.id}")
+        # outbound flow-link ids: (node id << 40) | seq is unique fleet-wide
+        # without coordination; generated only while tracing, so untraced
+        # packets stay span_id=0 (no trailer on the wire)
+        self._span_seq = 0
+
         # batched aggregate combine: device constructors expose
         # `device_combine`, and the shim routes the store's merge/patch
         # point-addition chains through one combine_batch launch per group
@@ -244,6 +255,8 @@ class Handel:
             max_pending=self.c.max_pending,
             on_verify_failed=self._on_verify_failed,
             logger=self.log,
+            recorder=self.rec,
+            trace_tid=self._tid,
         )
         self.net.register_listener(self)
         self.timeout = (
@@ -302,6 +315,9 @@ class Handel:
     def new_packet(self, p: Packet) -> None:
         if self.done:
             return
+        rec = self.rec
+        tracing = rec is not None and rec.enabled
+        t0 = trace_now() if tracing else 0.0
         try:
             self._validate_packet(p)
         except ValueError as e:
@@ -317,10 +333,50 @@ class Handel:
             # (at low weight — a corrupting link blames an honest sender)
             self.scorer.report(p.origin, WEIGHT_PARSE_FAIL)
             return
+        if tracing:
+            # the sender's stamp lines the network-transit span up with our
+            # local spans (both sides use the shared epoch trace clock)
+            if p.sent_ts and p.sent_ts <= t0:
+                rec.span(
+                    "net_transit",
+                    p.sent_ts,
+                    t0,
+                    tid=self._tid,
+                    cat="net",
+                    args={"origin": p.origin, "level": p.level, "span": p.span_id},
+                )
+            ms.recv_ts = t0
+            ms.span_id = p.span_id
+            if ind is not None:
+                ind.recv_ts = t0
+                ind.span_id = p.span_id
         if not self.levels[p.level].rcv_completed:
             self.proc.add(ms)
             if ind is not None:
                 self.proc.add(ind)
+            if tracing:
+                # `rts` (arrival stamp, µs) discriminates re-deliveries of
+                # the same (origin, level) so the trace CLI reconstructs
+                # each physical contribution's chain separately
+                t1 = trace_now()
+                rec.span(
+                    "recv",
+                    t0,
+                    t1,
+                    tid=self._tid,
+                    cat="pipeline",
+                    args={
+                        "origin": p.origin,
+                        "level": p.level,
+                        "rts": int(t0 * 1e6),
+                        "span": p.span_id,
+                        "hop": p.hop,
+                    },
+                )
+                if p.span_id:
+                    # flow step: binds the sender's `send` arrow into this
+                    # recv span ("t" + bp:e attaches to the enclosing slice)
+                    rec.flow("contrib", p.span_id, "t", t1, tid=self._tid)
 
     def _warn_once(self, key: str, detail) -> None:
         """WARN on the first occurrence per reason, debug + counter after —
@@ -378,6 +434,33 @@ class Handel:
     def _on_verified(self, sp: IncomingSig) -> None:
         """Store the verified signature, then run the actors
         (rangeOnVerified, handel.go:239-248)."""
+        rec = self.rec
+        if rec is not None and rec.enabled:
+            t0 = trace_now()
+            self.store.store(sp)
+            self._check_completed_level(sp)
+            self._check_final_signature(sp)
+            t1 = trace_now()
+            rec.span(
+                "merge",
+                t0,
+                t1,
+                tid=self._tid,
+                cat="pipeline",
+                args={
+                    "origin": sp.origin,
+                    "level": sp.level,
+                    "rts": int(sp.recv_ts * 1e6),
+                    "ind": sp.is_ind,
+                    "span": sp.span_id,
+                },
+            )
+            if sp.span_id:
+                # flow finish: the inbound contribution's causal chain ends
+                # where it lands in the store (fast-path sends that happened
+                # inside this merge already opened their own outbound flows)
+                rec.flow("contrib", sp.span_id, "f", t1, tid=self._tid)
+            return
         self.store.store(sp)
         self._check_completed_level(sp)
         self._check_final_signature(sp)
@@ -401,11 +484,21 @@ class Handel:
         sig = self.store.full_signature()
         if sig is None:
             return
+        first = self.best is None
         self.best = sig
         self.log.info(
             "new_sig",
             f"{sig.cardinality()}/{self.threshold}/{self.reg.size()}",
         )
+        if first and self.rec is not None:
+            # the critical-path walk (sim/trace_cli.py) anchors on the
+            # earliest of these across the fleet's node files
+            self.rec.instant(
+                "threshold_reached",
+                tid=self._tid,
+                cat="protocol",
+                args={"card": sig.cardinality(), "threshold": self.threshold},
+            )
         self.final_signatures.put_nowait(sig)
 
     def _check_completed_level(self, sp: IncomingSig) -> None:
@@ -430,6 +523,13 @@ class Handel:
         self.log.debug("level_complete", lid)
         lvl.rcv_completed = True
         self.hist_level_complete.add(time.monotonic() - self.start_time)
+        if self.rec is not None:
+            self.rec.instant(
+                "level_complete",
+                tid=self._tid,
+                cat="protocol",
+                args={"level": lid},
+            )
 
     def _fastpath_level(self, lid: int, up: Level) -> None:
         # update_sig_to_send rejects anything not strictly better than
@@ -471,6 +571,14 @@ class Handel:
     ) -> None:
         if not ids:
             return
+        rec = self.rec
+        tracing = rec is not None and rec.enabled
+        if tracing:
+            self._span_seq += 1
+            sid = (self.id.id << 40) | self._span_seq
+            t0 = trace_now()
+        else:
+            sid = 0
         self.msg_sent_ct += len(ids)
         p = Packet(
             origin=self.id.id,
@@ -480,8 +588,28 @@ class Handel:
             # stamped with the shared trace clock, as the JAX package's
             # nodes stamp theirs (a tracing receiver lines up transit spans)
             sent_ts=trace_now(),
+            span_id=sid,
+            # an aggregate of >1 contributions carries earlier hops
+            hop=1 if sid and ms.cardinality() > 1 else 0,
         )
         self.net.send(ids, p)
+        if tracing:
+            t1 = trace_now()
+            rec.span(
+                "send",
+                t0,
+                t1,
+                tid=self._tid,
+                cat="pipeline",
+                args={
+                    "level": level,
+                    "card": ms.cardinality(),
+                    "peers": len(ids),
+                    "span": sid,
+                },
+            )
+            # flow start: receivers' recv/merge steps bind to this span
+            rec.flow("contrib", sid, "s", t0, tid=self._tid)
 
     # -- reporting ---------------------------------------------------------
 

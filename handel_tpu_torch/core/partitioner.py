@@ -44,7 +44,13 @@ class IncomingSig:
     is_ind: bool = False
     mapped_index: int = 0
     verify_tries: int = 0  # verifier-error retry count (processing requeue)
-    enqueue_ts: float = 0.0  # queue-wait start (processing), trace clock
+    # trace stamps (core/trace.py clock): packet arrival and (re)enqueue
+    # into the pending queue — the span boundaries of recv/queue/verify
+    recv_ts: float = 0.0
+    enqueue_ts: float = 0.0
+    # sender flow-link id (Packet.span_id): rides through queue/verify/merge
+    # span args so the causal chain survives the pending-queue reorder
+    span_id: int = 0
 
     @property
     def individual(self) -> bool:

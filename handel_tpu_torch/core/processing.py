@@ -211,6 +211,8 @@ class BatchProcessing:
         max_pending: int = 4096,
         on_verify_failed: Callable[[IncomingSig], None] | None = None,
         logger: Logger = DEFAULT_LOGGER,
+        recorder=None,
+        trace_tid: int = 0,
     ):
         self.part = part
         self.cons = constructor
@@ -248,6 +250,10 @@ class BatchProcessing:
         self._task: asyncio.Task | None = None
         self._stopped = False
 
+        # per-contribution queue/verify spans when a flight recorder is
+        # attached (core/trace.py), on the node's own trace thread
+        self.rec = recorder
+        self.tid = trace_tid
         # latency distributions for the monitor's histogram plane: enqueue
         # to selection per candidate, and the verifier wall per launch (the
         # round's verify p50)
@@ -391,10 +397,28 @@ class BatchProcessing:
 
     async def _verify_and_publish(self, batch: list[IncomingSig]) -> None:
         start = time.perf_counter()
+        rec = self.rec
+        tracing = rec is not None and rec.enabled
         t_deq = trace_now()
         for sp in batch:
             if sp.enqueue_ts:
                 self.hist_queue_wait.add(max(0.0, t_deq - sp.enqueue_ts))
+                if tracing:
+                    rec.span(
+                        "queue",
+                        sp.enqueue_ts,
+                        t_deq,
+                        tid=self.tid,
+                        cat="pipeline",
+                        args={
+                            "origin": sp.origin,
+                            "level": sp.level,
+                            "rts": int(sp.recv_ts * 1e6),
+                            "ind": sp.is_ind,
+                            "tries": sp.verify_tries,
+                            "span": sp.span_id,
+                        },
+                    )
         # Dedup pass: a candidate whose exact content — (level, bitset words,
         # signature bytes) — this node has already judged takes its remembered
         # verdict; duplicates WITHIN the batch ride the first copy's lane.
@@ -452,9 +476,33 @@ class BatchProcessing:
             if oks[i] is None and first_at.get(k, i) != i:
                 oks[i] = oks[first_at[k]]
         self.sig_checking_time_ms += (time.perf_counter() - start) * 1000.0
+        t_verified = trace_now()
         if to_verify:
             # device-verify latency per launch (the round's verify p50)
-            self.hist_verify.add(max(0.0, trace_now() - t_deq))
+            self.hist_verify.add(max(0.0, t_verified - t_deq))
+        if tracing:
+            for sp, ok in zip(batch, oks):
+                # dedup-cached candidates resolve at the scan: near-zero span
+                rec.span(
+                    "verify",
+                    t_deq,
+                    t_verified,
+                    tid=self.tid,
+                    cat="pipeline",
+                    args={
+                        "origin": sp.origin,
+                        "level": sp.level,
+                        "rts": int(sp.recv_ts * 1e6),
+                        "ind": sp.is_ind,
+                        "ok": bool(ok) if ok is not None else None,
+                        "batch": len(batch),
+                        "span": sp.span_id,
+                    },
+                )
+                if sp.span_id:
+                    # flow step through the verify stage keeps the arrow
+                    # alive across the queue reorder (merge emits the "f")
+                    rec.flow("contrib", sp.span_id, "t", t_verified, tid=self.tid)
 
         for sp, ok in zip(batch, oks):
             if ok is None:

@@ -1,5 +1,4 @@
-"""In-process multi-node harness — the part of handel_tpu/core/test_harness.py
-that runs a round of honest and offline nodes.
+"""In-process multi-node harness — a copy of handel_tpu/core/test_harness.py.
 
 Reference: test.go:15-251 — the `Test` struct building N fully wired Handel
 instances over an in-memory network (`TestNetwork`, test.go:226-251), with
@@ -17,8 +16,14 @@ Shared verifier: nodes reach one `BatchVerifierService`
 the cluster, where the reference's metrics read it. A factory replaces the
 harness's defaults, so it sets `new_timeout = InfiniteTimeout` and
 `rand = random.Random(seed + i)` itself when the round should keep the
-shape of a default one. The JAX package's chaos, geo, adversary, metrics,
-recorder and packet-loss options are not ported yet (ROADMAP).
+shape of a default one.
+
+Faults and observability: `loss_rate` drops routed packets, `chaos` wraps
+each node's network in a seeded `ChaosNetwork`, `adversaries` seats
+byzantine roles (sim/adversary.py), `recorder` shares one flight recorder
+(core/trace.py) across the nodes and `metrics_port` serves the cluster's
+/metrics (core/metrics.py). The JAX package's geo model (ROADMAP item 4)
+and its churner role (item 8) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from handel_tpu_torch.core.identity import ArrayRegistry, Identity
 from handel_tpu_torch.core.net import Listener, Packet
 from handel_tpu_torch.core.timeout import InfiniteTimeout
 from handel_tpu_torch.models.fake import FakeScheme
+from handel_tpu_torch.network.chaos import ChaosConfig, ChaosNetwork
 
 __all__ = [
     "FakeScheme", "InProcessNetwork", "InProcessRouter", "LocalCluster", "run_cluster",
@@ -43,16 +49,27 @@ __all__ = [
 class InProcessRouter:
     """Address -> listener routing table shared by all in-process networks."""
 
-    def __init__(self):
+    def __init__(self, loss_rate: float = 0.0, rand: random.Random | None = None):
         self.listeners: dict[str, list[Listener]] = {}
+        self.loss_rate = loss_rate
+        self.rand = rand or random.Random(0)
+        self.sent_packets = 0
 
     def route(self, identities: Sequence[Identity], packet: Packet) -> None:
         loop = asyncio.get_running_loop()
         wire = packet.encode()
         for ident in identities:
+            if self.loss_rate and self.rand.random() < self.loss_rate:
+                continue
             for lst in self.listeners.get(ident.address, []):
+                self.sent_packets += 1
                 # deliver asynchronously, like a real datagram (test.go:242-250)
                 loop.call_soon(lst.new_packet, Packet.decode(wire))
+
+    def values(self) -> dict[str, float]:
+        """Reporter surface: the cluster-wide transport plane (the udp/tcp
+        per-node counters' in-process analog, for the metrics registry)."""
+        return {"sentPackets": float(self.sent_packets)}
 
 
 class InProcessNetwork:
@@ -81,13 +98,30 @@ class LocalCluster:
         msg: bytes = b"hello world",
         config_factory: Callable[[int], Config] | None = None,
         seed: int = 1,
+        loss_rate: float = 0.0,
+        chaos: ChaosConfig | None = None,
+        geo=None,
+        adversaries: dict[int, str] | None = None,
+        recorder=None,
+        metrics_port: int | None = None,
         verifier_service=None,
     ):
+        if geo is not None:
+            raise NotImplementedError(
+                "the geo planet model (network/geo.py) is not ported to "
+                "handel_tpu_torch yet (ROADMAP item 4)"
+            )
         self.n = n
         self.scheme = scheme or FakeScheme()
         self.msg = msg
         self.offline = set(offline)
-        self.router = InProcessRouter()
+        # byzantine roles (sim/adversary.py): node id -> role name. These
+        # nodes run — adversarially — so the honest cohort must converge
+        # around them, not without them.
+        self.roles = dict(adversaries or {})
+        self.router = InProcessRouter(
+            loss_rate=loss_rate, rand=random.Random(seed)
+        )
         cons: Constructor = self.scheme.constructor
 
         secrets, idents = [], []
@@ -98,19 +132,41 @@ class LocalCluster:
         self.registry = ArrayRegistry(idents)
 
         self.handels: dict[int, Handel] = {}
+        self.adversaries: dict[int, Handel] = {}
+        has_byzantine = bool(self.offline or self.roles or chaos)
         for i in range(n):
             if i in self.offline:
                 continue  # offline nodes are simply never built (test.go:105-113)
             cfg = config_factory(i) if config_factory else Config()
+            if recorder is not None:
+                # shared flight recorder (core/trace.py): all in-process
+                # nodes record into one ring, tid = node id
+                cfg.recorder = recorder
             if threshold is not None:
                 cfg.contributions = threshold
             if cfg.rand is None or config_factory is None:
                 cfg.rand = random.Random(seed + i)
-            if not self.offline and config_factory is None:
+            if not has_byzantine and config_factory is None:
                 # no failures -> no timeouts, so stalls are real bugs
                 # (handel_test.go:99-101, 442-455)
                 cfg.new_timeout = InfiniteTimeout
             net = InProcessNetwork(self.router, f"inproc-{i}")
+            if chaos is not None and chaos.any():
+                net = ChaosNetwork(net, chaos.for_node(i))
+            if i in self.roles:
+                from handel_tpu_torch.sim.adversary import build_adversary
+
+                self.adversaries[i] = build_adversary(
+                    self.roles[i],
+                    net,
+                    self.registry,
+                    idents[i],
+                    cons,
+                    self.msg,
+                    secrets[i],
+                    cfg,
+                )
+                continue
             own_sig = secrets[i].sign(self.msg)
             self.handels[i] = Handel(
                 net, self.registry, idents[i], cons, self.msg, own_sig, cfg
@@ -118,13 +174,50 @@ class LocalCluster:
         self.threshold = next(iter(self.handels.values())).threshold
         self.verifier_service = verifier_service
 
+        # live telemetry (core/metrics.py): one registry + HTTP endpoint for
+        # the whole in-process cluster, every node's planes under a `node`
+        # label. metrics_port=None = fully off.
+        self.metrics = None
+        self.metrics_server = None
+        if metrics_port is not None:
+            from handel_tpu_torch.core.metrics import MetricsRegistry, MetricsServer
+
+            reg = MetricsRegistry()
+            for i, h in self.handels.items():
+                lbl = {"node": str(i)}
+                reg.register_values("sigs", h, labels=lbl)
+                reg.register_histograms("sigs", h, labels=lbl)
+                reg.register_values("penalty", h.scorer, labels=lbl)
+            reg.register_values("net", self.router)
+            if verifier_service is not None:
+                reg.register_values("device_verifier", verifier_service)
+            self._started = False
+            reg.add_readiness("cluster_started", lambda: self._started)
+            reg.add_readiness(
+                "breaker_closed",
+                lambda: (
+                    self.verifier_service is None
+                    or self.verifier_service.breaker.state != "open"
+                ),
+            )
+            self.metrics = reg
+            self.metrics_server = MetricsServer(reg, port=metrics_port).start()
+
     def start(self) -> None:
         for h in self.handels.values():
             h.start()
+        for a in self.adversaries.values():
+            a.start()
+        if self.metrics is not None:
+            self._started = True
 
     def stop(self) -> None:
         for h in self.handels.values():
             h.stop()
+        for a in self.adversaries.values():
+            a.stop()
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
 
     def _raise_if_a_node_died(self) -> None:
         """Re-raise the error of a node's processing or gossip task that

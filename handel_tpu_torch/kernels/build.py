@@ -14,6 +14,9 @@ sources and the CUDA toolkit's headers are compiled; no PyTorch header is
 included, which keeps a build at seconds. `build_all` starts one nvcc per
 source, all at once. nvcc's output (ptxas's register and spill report) is
 kept beside each library as `<library>.log`.
+
+`BUILT` (name -> nvcc seconds) and `LOADED` (names) record what this process
+built and loaded, for the card's telemetry (parallel/telemetry.py).
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ NVCC_FLAGS = (
 )
 # every kernel source of the port (csrc/<name>.cu)
 KERNELS = ("fp_mont", "rns_mont", "lab_mont")
+
+# this process's nvcc builds (name -> seconds) and library loads
+BUILT: dict[str, float] = {}
+LOADED: set[str] = set()
 
 
 def nvcc_path() -> str:
@@ -104,12 +111,17 @@ def build_all(names=KERNELS) -> dict[str, tuple[float, str]]:
         else:
             log = _finish(n, s)
             out[n] = (time.perf_counter() - t0, log)
+            BUILT[n] = out[n][0]
     return out
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu if needed and load it."""
+    t0 = time.perf_counter()
     started = _start(name)
     if started is not None:
         _finish(name, started)
-    return ctypes.CDLL(str(library_path(name)))
+        BUILT[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(library_path(name)))
+    LOADED.add(name)
+    return lib

@@ -1,8 +1,9 @@
 """Real transports for the protocol plane — the part of handel_tpu/network/
 that the port has: the wire codecs and the byte counter (encoding.py), the
-UDP and TCP transports (udp.py, tcp.py, stream.py), and the chaos plane's
-TOML section (chaos.py `ChaosConfig`; the fault-injecting `ChaosNetwork`, the
-TLS transport and the geo model are not ported yet, ROADMAP item 4).
+UDP and TCP transports (udp.py, tcp.py, stream.py), and the chaos plane
+(chaos.py: `ChaosConfig`, the `[chaos]` TOML section, and the
+fault-injecting `ChaosNetwork`). The TLS transport and the geo model are not
+ported yet (ROADMAP item 4).
 
 The in-process transport lives in core/test_harness.py; these sockets carry
 protocol traffic between processes and hosts. Signature batches ride the
@@ -10,7 +11,7 @@ separate host-to-device plane (parallel/batch_verifier.py), never these
 sockets.
 """
 
-from handel_tpu_torch.network.chaos import ChaosConfig
+from handel_tpu_torch.network.chaos import ChaosConfig, ChaosNetwork
 from handel_tpu_torch.network.encoding import (
     BinaryEncoding,
     CounterEncoding,
@@ -24,6 +25,7 @@ __all__ = [
     "BinaryEncoding",
     "CounterEncoding",
     "ChaosConfig",
+    "ChaosNetwork",
     "UDPNetwork",
     "TCPNetwork",
 ]

@@ -3,7 +3,9 @@
 `BatchVerifierService` (batch_verifier.py) fuses every node's verify
 candidates into shared launches over a `DevicePlane` (plane.py) of device
 engines; mesh_plane.py holds the dual-mode routing policy it consults.
-Meshes of several cards are not ported yet (ROADMAP).
+rpc_verifier.py serves a service to processes without an engine over TCP,
+and telemetry.py samples the card's state for the metrics plane. Meshes of
+several cards are not ported yet (ROADMAP).
 """
 
 from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService

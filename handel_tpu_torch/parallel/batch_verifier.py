@@ -29,21 +29,27 @@ Threads: a lane's `dispatch` and `fetch` run in the loop's default
 executor, so an engine is driven from worker threads while the loop goes
 on; with `max_inflight` > 1 the dispatch of launch n+1 can run while the
 fetch of launch n waits. models/bn254_torch.py says how its engine stays
-safe under that. The reference's flight-recorder spans and instants are
-not ported yet (ROADMAP).
+safe under that.
+
+Tracing: with a `FlightRecorder` (core/trace.py) the service records each
+launch's host pack (`dispatch_pack`) and device wall (`device_verify`) on
+its own trace thread (`SERVICE_TID`), each lane's launch lifecycle
+(`launch_queued`, `launch_staged`, `launch_on_device`, `launch_fetched`) on
+the lane's thread, and breaker, failover and lifecycle instants. Untraced,
+each hook is one `is None` test.
 """
 
 
 from __future__ import annotations
 
 import asyncio
-import time
 from functools import partial
 from typing import Callable, Sequence
 
 from handel_tpu_torch.core.bitset import BitSet
 from handel_tpu_torch.core.logging import DEFAULT_LOGGER, Logger
 from handel_tpu_torch.core.store import VerifiedAggCache
+from handel_tpu_torch.core.trace import SERVICE_TID, trace_now
 from handel_tpu_torch.parallel.mesh_plane import MODE_LATENCY, ModePolicy
 from handel_tpu_torch.parallel.plane import BREAKER_CODE, DeviceLane, DevicePlane
 from handel_tpu_torch.service.fairness import TenantQueue
@@ -99,6 +105,7 @@ class BatchVerifierService:
         backoff_base_s: float = 0.05,
         backoff_cap_s: float = 1.0,
         logger: Logger = DEFAULT_LOGGER,
+        recorder=None,
         quantum: int = 8,
         max_pending_per_session: int = 4096,
         queue_capacity: int = 0,
@@ -112,6 +119,20 @@ class BatchVerifierService:
             )
         self.device = self.plane.lanes[0].engine
         self.breaker = self.plane.lanes[0].breaker
+        # flight recorder (core/trace.py): dispatch-pack (host prep) and
+        # device-verify (launch wall) spans + breaker/failover instants,
+        # recorded on the service's own trace lane (SERVICE_TID)
+        self.rec = recorder
+        if recorder is not None:
+            recorder.name_thread(SERVICE_TID, "batch-verifier")
+            # each card is a named trace thread carrying its launch
+            # lifecycle (queued/staged/on-device/fetched spans below)
+            for lane in self.plane.lanes:
+                recorder.name_thread(
+                    lane.trace_tid, f"device-lane-{lane.index}"
+                )
+        for lane in self.plane.lanes:
+            self._hook_breaker(lane)
         self.max_delay = max_delay_ms / 1000.0
         self.max_inflight = max(1, max_inflight)
         # -- resilience plane: per-lane breakers + host failover ------------
@@ -425,7 +446,7 @@ class BatchVerifierService:
         if self._task is None:
             fn()
             return 0.0
-        t0 = time.monotonic()
+        t0 = trace_now()
         self._gate.clear()
         try:
             while not self._plane_idle():
@@ -434,10 +455,31 @@ class BatchVerifierService:
         finally:
             self._gate.set()
             self._kick.set()
-        stall = time.monotonic() - t0
+        stall = trace_now() - t0
         self.quiesce_ct += 1
         self.last_quiesce_stall_ms = stall * 1e3
+        if self.rec is not None:
+            self.rec.span(
+                "plane_quiesce", t0, t0 + stall, tid=SERVICE_TID,
+                cat="lifecycle", args={"stall_ms": round(stall * 1e3, 3)},
+            )
         return stall
+
+    def _hook_breaker(self, lane: DeviceLane) -> None:
+        """Make this lane's breaker transitions observable: each state
+        edge emits a trace instant on the lane's own trace thread. The
+        monotonic count itself rides the breaker (`transitions`, summed
+        into values() breakerTransitionsCt)."""
+        def on_transition(prev: str, new: str,
+                          _lane: DeviceLane = lane) -> None:
+            if self.rec is not None:
+                self.rec.instant(
+                    "breaker_transition", tid=_lane.trace_tid,
+                    cat="resilience",
+                    args={"lane": _lane.index, "from": prev, "to": new},
+                )
+
+        lane.breaker.on_transition = on_transition
 
     def attach_lane(self, engine, breaker: CircuitBreaker | None = None,
                     mesh: bool = False) -> DeviceLane:
@@ -448,6 +490,17 @@ class BatchVerifierService:
         latency-plane mesh lane (parallel/mesh_plane.py enable_latency_
         plane): only latency-mode groups are routed to it."""
         lane = self.plane.add_lane(engine, breaker, mesh=mesh)
+        self._hook_breaker(lane)
+        if self.rec is not None:
+            kind = "device-mesh" if mesh else "device-lane"
+            self.rec.name_thread(lane.trace_tid, f"{kind}-{lane.index}")
+            self.rec.instant(
+                "lane_attached", tid=SERVICE_TID, cat="lifecycle",
+                args={
+                    "lane": lane.index, "lanes": len(self.plane),
+                    "mesh": mesh,
+                },
+            )
         if self._task is not None:
             self._wire_lane(asyncio.get_running_loop(), lane)
             self._free.set()  # a new free lane exists: wake the collector
@@ -462,12 +515,12 @@ class BatchVerifierService:
         remaining work was failed over and the lane removed anyway — a
         wedged chip must not be immortal)."""
         lane.draining = True
-        deadline = time.monotonic() + timeout_s
+        deadline = trace_now() + timeout_s
         while (
             lane.dispatching is not None or lane.fetching is not None
             or (lane.fetch_q is not None and lane.fetch_q.qsize())
         ):
-            if time.monotonic() >= deadline:
+            if trace_now() >= deadline:
                 break
             await asyncio.sleep(0.001)
         clean = (
@@ -499,6 +552,14 @@ class BatchVerifierService:
         self.plane.remove_lane(lane)
         if leftovers:
             await self._failover(leftovers)
+        if self.rec is not None:
+            self.rec.instant(
+                "lane_drained", tid=SERVICE_TID, cat="lifecycle",
+                args={
+                    "lane": lane.index, "clean": clean,
+                    "lanes": len(self.plane),
+                },
+            )
         if self._free is not None:
             self._free.set()  # re-evaluate scheduling after the shrink
         return clean
@@ -654,8 +715,25 @@ class BatchVerifierService:
                 # no-op). No await between pick and put -> put_nowait is
                 # safe on the capacity-1 cell.
                 target.dispatching = items
+                if self.rec is not None and self.rec.enabled:
+                    # launch_queued span start (the dispatcher reads it when
+                    # it takes the group off the capacity-1 cell)
+                    target.queued_ts = trace_now()
                 target.q.put_nowait(items)
             self._collector_held = None
+
+    def _lane_span_args(self, lane: DeviceLane, items: list) -> dict:
+        """Launch-lifecycle span args: lane, group size, and the sessions
+        whose candidates ride this launch (computed only while tracing —
+        the set build never runs on the untraced hot path)."""
+        args = {
+            "lane": lane.index, "n": len(items),
+            "mode": "mesh" if lane.mesh else "lane",
+        }
+        sessions = sorted({it[_SESSION] for it in items if it[_SESSION]})
+        if sessions:
+            args["sessions"] = ",".join(sessions)
+        return args
 
     async def _lane_dispatcher(self, lane: DeviceLane) -> None:
         """Per-lane first pipeline stage: dispatch groups handed to this
@@ -665,10 +743,49 @@ class BatchVerifierService:
         while True:
             items = await lane.q.get()
             handle = None
+            tracing = self.rec is not None and self.rec.enabled
+            t_deq = trace_now() if tracing else 0.0
+            if tracing and lane.queued_ts:
+                # time the group sat in the hand-off cell waiting for this
+                # lane — the first stage of its lifecycle timeline
+                self.rec.span(
+                    "launch_queued",
+                    lane.queued_ts,
+                    t_deq,
+                    tid=lane.trace_tid,
+                    cat="device",
+                    args=self._lane_span_args(lane, items),
+                )
             if lane.breaker.allow():
+                t0 = trace_now()
                 handle = await self._dispatch_with_retries(
                     lane, self._launch_call(lane, items)
                 )
+                if tracing:
+                    t_disp = trace_now()
+                    # the host half of a launch: request packing + the
+                    # async enqueue (the engine's host pack time lives in here)
+                    self.rec.span(
+                        "dispatch_pack",
+                        t0,
+                        t_disp,
+                        tid=SERVICE_TID,
+                        cat="verifier",
+                        args={
+                            "n": len(items),
+                            "ok": handle is not None,
+                            "device": lane.index,
+                        },
+                    )
+                    # same interval on the lane's own timeline: host staging
+                    self.rec.span(
+                        "launch_staged",
+                        t0,
+                        t_disp,
+                        tid=lane.trace_tid,
+                        cat="device",
+                        args=self._lane_span_args(lane, items),
+                    )
             if handle is None:
                 # this lane's breaker opened (or retries exhausted): the
                 # group fails over; FUTURE groups go to other lanes
@@ -688,7 +805,9 @@ class BatchVerifierService:
                 lane.candidates += len(items)
                 if len({it[_MSG] for it in items}) > 1:
                     self.coalesced_launches += 1
-                await lane.fetch_q.put((handle, items))
+                # dispatch-completion stamp rides to the fetcher: the
+                # launch_on_device span starts where staging ended
+                await lane.fetch_q.put((handle, items, trace_now()))
             lane.dispatching = None
             self._free.set()
 
@@ -703,6 +822,17 @@ class BatchVerifierService:
                 raise  # stop() fails the futures via lane.dispatching
             except Exception as e:
                 lane.breaker.record_failure()
+                if self.rec is not None:
+                    self.rec.instant(
+                        "device_error",
+                        tid=SERVICE_TID,
+                        cat="verifier",
+                        args={
+                            "stage": "dispatch",
+                            "device": lane.index,
+                            "breaker": lane.breaker.state,
+                        },
+                    )
                 self.log.warn(
                     "verifier_device_error",
                     f"dispatch attempt {attempt + 1} "
@@ -729,6 +859,16 @@ class BatchVerifierService:
                 if not it[_FUT].done():
                     it[_FUT].set_exception(err)
             return
+        if self.rec is not None:
+            self.rec.instant(
+                "verifier_failover",
+                tid=SERVICE_TID,
+                cat="verifier",
+                args={
+                    "n": len(items),
+                    "devices_available": len(self.plane.allowed()),
+                },
+            )
         by_msg: dict[bytes, list] = {}
         for it in items:
             by_msg.setdefault(it[_MSG], []).append(it)
@@ -759,10 +899,11 @@ class BatchVerifierService:
         dispatched launches, in dispatch order, and resolve the waiters."""
         loop = asyncio.get_running_loop()
         while True:
-            handle, items = await lane.fetch_q.get()
+            handle, items, t_disp = await lane.fetch_q.get()
             # outside the window until resolved: visible to stop() (see
             # _collector's mirror note)
             lane.fetching = items
+            t0 = trace_now()
             try:
                 verdicts = await loop.run_in_executor(
                     None, partial(lane.engine.fetch, handle)
@@ -780,6 +921,40 @@ class BatchVerifierService:
                 await self._failover(items)
                 lane.fetching = None
                 continue
+            if self.rec is not None and self.rec.enabled:
+                t_end = trace_now()
+                # device wall per launch (verdict-arrival latency), the
+                # counterpart of dispatch_pack's host half
+                self.rec.span(
+                    "device_verify",
+                    t0,
+                    t_end,
+                    tid=SERVICE_TID,
+                    cat="verifier",
+                    args={"n": len(items), "device": lane.index},
+                )
+                largs = self._lane_span_args(lane, items)
+                # lane-timeline remainder of the lifecycle: in flight on
+                # the chip since dispatch, and the verdict transfer window.
+                # Mesh launches carry their own span name so the critical-
+                # path analyzer (sim/trace_cli.py) attributes whole-mesh
+                # walls distinctly from per-chip lane walls.
+                self.rec.span(
+                    "launch_on_mesh" if lane.mesh else "launch_on_device",
+                    t_disp,
+                    t_end,
+                    tid=lane.trace_tid,
+                    cat="device",
+                    args=largs,
+                )
+                self.rec.span(
+                    "launch_fetched",
+                    t0,
+                    t_end,
+                    tid=lane.trace_tid,
+                    cat="device",
+                    args=largs,
+                )
             lane.breaker.record_success()
             lane.fetched += 1
             self.launches += 1

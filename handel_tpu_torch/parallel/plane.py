@@ -15,8 +15,9 @@ per device for a `device`-labeled metrics dimension beside `session`.
 
 This module imports no torch at module level: the host-engine planes of the
 protocol tests never touch a card. The BN254 builder (`bn254_plane`)
-imports lazily. The reference's flight-recorder hooks (each lane's trace
-thread and its queued stamp) are not ported yet (ROADMAP).
+imports lazily. Each lane carries its flight-recorder thread id
+(`trace_tid`) and the stamp of the group handed to it (`queued_ts`), which
+the service's launch-lifecycle spans read (parallel/batch_verifier.py).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ class DeviceLane:
     __slots__ = (
         "index", "engine", "breaker", "q", "fetch_q", "dispatching",
         "fetching", "launches", "candidates", "fill_sum", "last_fill",
-        "retries", "fetched", "draining", "tasks", "mesh",
+        "retries", "fetched", "queued_ts", "draining", "tasks", "mesh",
     )
 
     def __init__(self, index: int, engine, breaker: CircuitBreaker | None = None,
@@ -68,6 +69,9 @@ class DeviceLane:
         self.last_fill = 0.0
         self.retries = 0
         self.fetched = 0
+        # trace stamp: when the launch group currently in `q` was handed to
+        # this lane (the launch_queued span's start, batch_verifier.py)
+        self.queued_ts = 0.0
         # elasticity (the reference's lifecycle/autoscaler.py): a draining
         # lane finishes its in-flight launches but the scheduler stops
         # routing to it — the graceful half of drain_lane/remove_lane
@@ -75,6 +79,12 @@ class DeviceLane:
         # the lane's dispatcher/fetcher task pair while the service runs
         # (BatchVerifierService start()/attach_lane(); drain cancels them)
         self.tasks: tuple = ()
+
+    @property
+    def trace_tid(self) -> int:
+        """Chrome-trace thread id for this lane's launch-lifecycle spans:
+        negative ids keep lanes clear of node tids, below SERVICE_TID."""
+        return -(2 + self.index)
 
     def free(self) -> bool:
         """Can accept a launch group right now (dispatch slot empty)."""

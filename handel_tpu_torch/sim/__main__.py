@@ -4,10 +4,11 @@ Reference: simul/main.go:24-68 — load the TOML config, run each RunConfig
 in order on the chosen platform, abort a run after MaxTimeout.
 
 Usage: python -m handel_tpu_torch.sim --config sim.toml --workdir out/
+       python -m handel_tpu_torch.sim trace <trace-dir>   (analyze a traced run)
 
 The node processes run their device scheme on the card unless
-HANDEL_TORCH_DEVICE=cpu (utils/torchenv.py). The reference's subcommands
-are not ported yet: each exits non-zero naming its ROADMAP item.
+HANDEL_TORCH_DEVICE=cpu (utils/torchenv.py). The reference's other
+subcommands are not ported yet: each exits non-zero naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ from handel_tpu_torch.sim.platform import run_simulation
 
 #: subcommand -> ROADMAP item that ports it
 NOT_PORTED = {
-    "trace": "4 (6g, sim/trace_cli.py)",
     "watch": "8 (sim/watch_cli.py)",
     "serve": "8 (service/driver.py run_service)",
     "swarm": "8 (swarm/)",
@@ -33,6 +33,12 @@ NOT_PORTED = {
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "trace":
+        # trace-analysis subcommand (sim/trace_cli.py): reconstruct the
+        # aggregation wave + span attribution from flight-recorder dumps
+        from handel_tpu_torch.sim.trace_cli import main as trace_main
+
+        return trace_main(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] in NOT_PORTED:
         sub = sys.argv[1]
         print(

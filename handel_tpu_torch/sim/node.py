@@ -15,15 +15,23 @@ node; with `shared_verifier` and a device scheme they share one
 that $HANDEL_TORCH_DEVICE names (`cuda` unless it says `cpu`;
 utils/torchenv.py). The service has no host fallback: a failing device
 fails the run instead of degrading into host verification (ROADMAP §C,
-deviation 4).
+deviation 4). `--serve-verifier PORT` serves that service to other
+processes over TCP, and `--verifier HOST:PORT` makes a process without an
+engine verify through such a server (parallel/rpc_verifier.py).
+
+Faults and observability, as in the reference: `[chaos]` wraps each node's
+transport in a seeded `ChaosNetwork`, `[runs.adversaries]` seats byzantine
+roles (sim/adversary.py), `--trace-dir` records a flight recorder per
+process and dumps it as `trace_<first id>.json` after the END barrier, and
+`metrics = true` with `--metrics-port` serves /metrics, /healthz, /readyz
+and /debug/profile (core/metrics.py, parallel/telemetry.py).
 
 Cut from the reference, each raising NotImplementedError naming its ROADMAP
-item (`check_ported`): the metrics endpoint (`metrics`, `--metrics-port`),
-span tracing, the comparison baselines, adversaries, chaos, the geo model,
-stake weights, the TLS transport, the verifier RPC (`--verifier`,
-`--serve-verifier`) and a mesh wider than one device. The node ignores
-`[service]`, as the reference's does: its `batch_check` is for the `serve`
-and `load` paths, and a node's verifier checks per candidate.
+item (`check_ported`): the comparison baselines, the churner role, the geo
+model, stake weights, the TLS transport and a mesh wider than one device.
+The node ignores `[service]`, as the reference's does: its `batch_check` is
+for the `serve` and `load` paths, and a node's verifier checks per
+candidate.
 
 Beyond the reference: a device-scheme process prints one `node process
 kernels:` line (JSON) before `finished OK`: its kernel launch counts, over
@@ -38,16 +46,26 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 
 from handel_tpu_torch.core.crypto import verify_multisignature
 from handel_tpu_torch.core.handel import Handel
 from handel_tpu_torch.core.report import SUBGROUP_CHECKS, KernelTimer, ReportAggregator
+from handel_tpu_torch.core.trace import FlightRecorder
 from handel_tpu_torch.models.registry import is_device_scheme, new_scheme
+from handel_tpu_torch.network.chaos import ChaosNetwork
 from handel_tpu_torch.network.encoding import CounterEncoding
 from handel_tpu_torch.network.tcp import TCPNetwork
 from handel_tpu_torch.network.udp import UDPNetwork
 from handel_tpu_torch.sim import keys as simkeys
+from handel_tpu_torch.sim.adversary import (
+    ROLE_CHURNER,
+    adversary_roles,
+    build_adversary,
+    check_threshold_reachable,
+)
+from handel_tpu_torch.sim.allocator import new_allocator
 from handel_tpu_torch.sim.config import SimConfig, load_config
 from handel_tpu_torch.sim.monitor import CounterIO, HistogramIO, Sink, TimeMeasure
 from handel_tpu_torch.sim.sync import STATE_END, STATE_START, SyncSlave
@@ -55,30 +73,20 @@ from handel_tpu_torch.sim.sync import STATE_END, STATE_START, SyncSlave
 MSG = b"handel-tpu simulation message"
 
 
-def check_ported(cfg: SimConfig, args=None) -> None:
-    """Raise NotImplementedError for the first part of `cfg` (or of the
-    node's arguments) that the port does not have yet, naming its ROADMAP
-    item."""
+def check_ported(cfg: SimConfig) -> None:
+    """Raise NotImplementedError for the first part of `cfg` that the port
+    does not have yet, naming its ROADMAP item."""
     run_parts = [
-        (r.adversaries.total() > 0, "adversaries ([runs.adversaries])", "4 (6f)")
+        (r.adversaries.counts().get(ROLE_CHURNER, 0) > 0,
+         "the churner role ([runs.adversaries] churner)", "8 (6h)")
         for r in cfg.runs
     ]
     parts = [
-        (cfg.metrics, "metrics = true (core/metrics.py)", "4"),
-        (cfg.trace or bool(getattr(args, "trace_dir", "")),
-         "trace = true (the flight recorder)", "4 (6g)"),
         (bool(cfg.baseline), f"baseline = {cfg.baseline!r}", "9"),
         *run_parts,
-        (cfg.chaos.any(), "[chaos] (network/chaos.py ChaosNetwork)", "4"),
         (cfg.scenario.geo_enabled(), "the geo planet model (network/geo.py)", "4"),
         (cfg.scenario.weights_enabled(), "stake weights", "8 (6h)"),
         (cfg.network == "quic", 'network = "quic"', "4"),
-        (bool(getattr(args, "verifier", "")),
-         "--verifier (parallel/rpc_verifier.py)", "4"),
-        (bool(getattr(args, "serve_verifier", 0)),
-         "--serve-verifier (parallel/rpc_verifier.py)", "4"),
-        (getattr(args, "metrics_port", -1) >= 0,
-         "--metrics-port (core/metrics.py)", "4"),
         (cfg.mesh_devices > 1, f"mesh_devices = {cfg.mesh_devices}", "7"),
     ]
     for on, what, item in parts:
@@ -99,7 +107,43 @@ def _kernel_counts() -> dict[str, int]:
 async def run_node_process(args) -> int:
     cfg = load_config(args.config)
     run = cfg.runs[args.run]
-    check_ported(cfg, args)
+    check_ported(cfg)
+
+    # live telemetry plane (core/metrics.py): the HTTP endpoint comes up
+    # BEFORE the scheme builds, so /healthz answers during a long prepare
+    # while /readyz stays 503 until the readiness probes pass — scheme
+    # warmed, breaker not open, monitor sink connected. `metrics = false`
+    # (or no --metrics-port from the platform) keeps the plane fully off:
+    # zero threads, zero sockets.
+    mreg = mserver = None
+    sink = None
+    ready_state = {"scheme_warmed": False, "service": None}
+    if cfg.metrics and args.metrics_port >= 0:
+        from handel_tpu_torch.core.metrics import MetricsRegistry, MetricsServer
+
+        mreg = MetricsRegistry()
+        mreg.add_readiness("scheme_warmed", lambda: ready_state["scheme_warmed"])
+        mreg.add_readiness(
+            "breaker_closed",
+            lambda: (
+                ready_state["service"] is None
+                or ready_state["service"].breaker.state != "open"
+            ),
+        )
+        mreg.add_readiness("monitor_sink", lambda: bool(sink) or not args.monitor)
+        mserver = MetricsServer(mreg, port=args.metrics_port).start()
+        # the BOUND port is authoritative (--metrics-port 0 = ephemeral):
+        # drop it next to the config so scrapers can discover manual runs
+        addr_path = os.path.join(
+            os.path.dirname(os.path.abspath(args.config)),
+            f"metrics_{args.ids.split(',')[0]}.addr",
+        )
+        try:
+            with open(addr_path, "w") as f:
+                f.write(mserver.address + "\n")
+        except OSError:
+            pass
+        print(f"metrics: serving on http://{mserver.address}", flush=True)
 
     device_scheme = is_device_scheme(cfg.scheme)
     dev = None
@@ -128,7 +172,15 @@ async def run_node_process(args) -> int:
     ids = [int(x) for x in args.ids.split(",") if x != ""]
     threshold = run.resolved_threshold()
 
-    sink = Sink(args.monitor) if args.monitor else None
+    # span flight recorder (core/trace.py): one ring per process, every
+    # logical node recording under its id as the Chrome-trace tid; dumped
+    # as trace_<first-id>.json into --trace-dir after the END barrier
+    recorder = None
+    if args.trace_dir:
+        recorder = FlightRecorder(capacity=cfg.trace_capacity, pid=os.getpid())
+
+    if args.monitor:
+        sink = Sink(args.monitor)
     # process-wide batch-plane telemetry: G2 subgroup-check cost (which
     # starts accruing at registry load, right below), shared launch fill
     # ratio and launch wall time added once the service exists. Snapshot
@@ -141,16 +193,37 @@ async def run_node_process(args) -> int:
     records = simkeys.read_registry_csv(args.registry)
     registry = simkeys.registry_from_records(records, scheme)
 
+    # byzantine roles (sim/adversary.py): recompute the allocator's offline
+    # set locally so every process derives the SAME id -> role mapping
+    roles: dict[int, str] = {}
+    if run.adversaries.total():
+        alloc = new_allocator(cfg.allocator).allocate(
+            run.nodes, 1, run.processes, run.failing
+        )
+        offline = {nid for nid, slot in alloc.items() if not slot.active}
+        roles = adversary_roles(run.adversaries.counts(), run.nodes, offline)
+        check_threshold_reachable(threshold, run.nodes, run.failing, roles)
+
     # one transport per logical node, bound to its registry address
     handels = []
     shared_service = None
     combine_timer = None
+    rpc_client = None
+    rpc_server = None
     if device_scheme:
         # set before the Handels exist: each node's CombineShim binds the
         # constructor's `device_combine` when it is built
         combine_timer = KernelTimer(scheme.constructor.device_combine, name="combine")
         scheme.constructor.device_combine = combine_timer
-    if cfg.shared_verifier and hasattr(scheme.constructor, "Device"):
+    if args.verifier:
+        # a process without an engine: ship candidate batches to the card's
+        # host instead of preparing a device (parallel/rpc_verifier.py)
+        from handel_tpu_torch.parallel.rpc_verifier import RPCVerifier
+
+        rpc_client = RPCVerifier(args.verifier)
+        if plane is not None:
+            plane.add("rpc", rpc_client)
+    elif cfg.shared_verifier and hasattr(scheme.constructor, "Device"):
         from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
 
         # prepare() builds the engine for the registry (and warms it), and
@@ -165,11 +238,29 @@ async def run_node_process(args) -> int:
         dispatch_timer = KernelTimer(device.dispatch, name="dispatch")
         device.dispatch = dispatch_timer
         # no host fallback: a failing device fails the run (module docstring)
-        shared_service = BatchVerifierService(device, fallback=None)
+        shared_service = BatchVerifierService(
+            device, fallback=None, recorder=recorder
+        )
+        ready_state["service"] = shared_service
         if plane is not None:
             plane.add("verifier", shared_service)
             plane.add("launch", launch_timer)
             plane.add("dispatch", dispatch_timer)
+        if args.serve_verifier:
+            # this is the fleet's card host: serve the batch plane to every
+            # process without an engine BEFORE the START barrier, so remote
+            # clients never race the bind
+            from handel_tpu_torch.parallel.rpc_verifier import VerifierServer
+
+            rpc_server = VerifierServer(
+                shared_service, scheme.constructor, port=args.serve_verifier
+            )
+            await rpc_server.start()
+            if plane is not None:
+                plane.add("rpcserve", rpc_server)
+    # scheme construction and prepare() run the device's first-use work
+    # (models/bn254_torch.py); fake/host schemes are warm by definition
+    ready_state["scheme_warmed"] = True
 
     for nid in ids:
         rec = records[nid]
@@ -178,22 +269,73 @@ async def run_node_process(args) -> int:
             net = TCPNetwork(rec.address, encoding=enc)
         else:
             net = UDPNetwork(rec.address, encoding=enc)
+        if cfg.chaos.any():
+            # fault-injection plane (network/chaos.py): same transport
+            # underneath, seeded per-link faults on top
+            net = ChaosNetwork(net, cfg.chaos.for_node(nid))
         await net.start()
         sk = simkeys.secret_of(rec, scheme)
         hconf = run.handel.to_config(threshold, seed=nid)
         hconf.batch_size = cfg.batch_size
+        hconf.recorder = recorder
         if shared_service is not None:
             hconf.verifier = shared_service.verify
-        h = Handel(
-            net,
-            registry,
-            registry.identity(nid),
-            scheme.constructor,
-            MSG,
-            sk.sign(MSG),
-            hconf,
-        )
+        elif rpc_client is not None:
+            hconf.verifier = rpc_client.verify
+        if nid in roles:
+            h = build_adversary(
+                roles[nid],
+                net,
+                registry,
+                registry.identity(nid),
+                scheme.constructor,
+                MSG,
+                sk,
+                hconf,
+                flood_pps=run.adversaries.flood_pps,
+            )
+        else:
+            h = Handel(
+                net,
+                registry,
+                registry.identity(nid),
+                scheme.constructor,
+                MSG,
+                sk.sign(MSG),
+                hconf,
+            )
         handels.append((nid, h, net))
+
+    # registry-backed scrape surfaces: every logical node's protocol (sigs),
+    # transport (net) and peer-penalty planes under a node label, the
+    # process-wide verifier under device_verifier, the card's state under
+    # device, host crypto counters under host (naming: handel_<plane>_<key>)
+    if mreg is not None:
+        for nid, h, net in handels:
+            lbl = {"node": str(nid)}
+            mreg.register_values("sigs", h, labels=lbl)
+            mreg.register_histograms("sigs", h, labels=lbl)
+            mreg.register_values("net", net, labels=lbl)
+            if hasattr(net, "histograms"):
+                mreg.register_histograms("net", net, labels=lbl)
+            mreg.register_values("penalty", h.scorer, labels=lbl)
+        if shared_service is not None:
+            mreg.register_values("device_verifier", shared_service)
+        if plane is not None:
+            mreg.register_values("host", plane)
+        if recorder is not None:
+            mreg.register_values("trace", recorder)
+        if device_scheme:
+            from handel_tpu_torch.parallel.telemetry import DeviceTelemetry
+
+            telemetry = DeviceTelemetry(
+                service=shared_service,
+                device=dev,
+                trace_dir=args.trace_dir
+                or os.path.dirname(os.path.abspath(args.config)),
+            )
+            mreg.register_values("device", telemetry)
+            mserver.set_profiler(telemetry.profile)
 
     # barrier: ready to start (one slave per logical node id)
     slaves = []
@@ -205,23 +347,37 @@ async def run_node_process(args) -> int:
         *(s.signal_and_wait(STATE_START, cfg.max_timeout_s) for s in slaves)
     )
     kernels_at_start = _kernel_counts() if device_scheme else None
+    if recorder is not None and slaves:
+        # best (min-RTT) offset-vs-master estimate from the START handshake
+        # (sim/sync.py): carried in the trace export so merge_traces aligns
+        # this process's timeline with the rest of the fleet
+        best_slave = min(slaves, key=lambda s: s.clock_rtt)
+        if best_slave.clock_rtt != float("inf"):
+            recorder.clock_offset = best_slave.clock_offset
 
     measures = []
     for nid, h, net in handels:
         if sink:
-            measures.append((
-                TimeMeasure(sink, "sigen"),
-                CounterIO(sink, "net", net),
-                CounterIO(sink, "sigs", h),
-                HistogramIO(sink, "sigs", h),
-            ))
+            ms = [TimeMeasure(sink, "sigen"), CounterIO(sink, "net", net),
+                  CounterIO(sink, "sigs", h), HistogramIO(sink, "sigs", h)]
+            if hasattr(net, "histograms"):
+                # chaos delay distribution -> net_delayMs_p50/_p90/_p99
+                ms.append(HistogramIO(sink, "net", net))
+            measures.append(tuple(ms))
         else:
             measures.append(None)
         h.start()
 
+    # adversarial nodes never emit an honest final signature — only the
+    # honest cohort gates run completion
+    honest = [
+        (nid, h, net)
+        for nid, h, net in handels
+        if getattr(h, "role", None) is None
+    ]
     try:
         finals = await asyncio.wait_for(
-            asyncio.gather(*(h.final_signatures.get() for _, h, _ in handels)),
+            asyncio.gather(*(h.final_signatures.get() for _, h, _ in honest)),
             timeout=cfg.max_timeout_s,
         )
     except asyncio.TimeoutError:
@@ -240,11 +396,15 @@ async def run_node_process(args) -> int:
         raise
 
     ok = True
-    for (nid, h, net), m, ms in zip(handels, measures, finals):
+    finals_by_nid = dict(zip((nid for nid, _, _ in honest), finals))
+    for (nid, h, net), m in zip(handels, measures):
         if m:
             for meas in m:
                 meas.record()
-        if not verify_multisignature(MSG, ms, registry, scheme.constructor):
+        ms = finals_by_nid.get(nid)
+        if ms is not None and not verify_multisignature(
+            MSG, ms, registry, scheme.constructor
+        ):
             print(f"node {nid}: FINAL SIGNATURE INVALID", file=sys.stderr)
             ok = False
         h.stop()
@@ -253,13 +413,30 @@ async def run_node_process(args) -> int:
     await asyncio.gather(
         *(s.signal_and_wait(STATE_END, cfg.max_timeout_s) for s in slaves)
     )
-    # batch-plane record (once per process) AFTER the fleet-wide END
-    # barrier; the master's monitor stays up until it has collected the
+    # every node everywhere is done: stop serving and verifying before the
+    # batch-plane record and the trace dump, so that both hold the same
+    # launches (a launch still in flight would land between them). A
+    # verifier-serving process answers other processes' RPC batches until
+    # here. The master's monitor stays up until it has collected the
     # process exits, so this record still lands
-    if device_meas is not None:
-        device_meas.record()
+    if rpc_server is not None:
+        rpc_server.stop()
     if shared_service is not None:
         shared_service.stop()
+    if device_meas is not None:
+        device_meas.record()
+    if recorder is not None:
+        recorder.dump(
+            os.path.join(args.trace_dir, f"trace_{ids[0] if ids else 0}.json")
+        )
+    if mserver is not None:
+        # keep the endpoint up briefly so scrapers catch the final counter
+        # state of a short run (default 0)
+        if cfg.metrics_linger_s > 0:
+            await asyncio.sleep(cfg.metrics_linger_s)
+        mserver.stop()
+    if rpc_client is not None:
+        rpc_client.stop()
     if device_scheme:
         import torch
 
@@ -296,11 +473,16 @@ def main() -> int:
     ap.add_argument("--monitor", default="")
     ap.add_argument("--run", type=int, default=0)
     ap.add_argument("--ids", required=True)
-    # the reference's verifier RPC, span tracing and metrics endpoint: not
-    # ported (check_ported raises when one is set)
+    # batch-plane RPC (parallel/rpc_verifier.py): serve the local shared
+    # verifier on this port / verify through the card host's server
     ap.add_argument("--serve-verifier", type=int, default=0)
     ap.add_argument("--verifier", default="")
+    # span tracing: record a flight recorder (core/trace.py) and dump its
+    # Chrome trace_event JSON into this directory at run end
     ap.add_argument("--trace-dir", default="")
+    # live telemetry (core/metrics.py): serve /metrics+/healthz+/readyz on
+    # this port (0 = ephemeral, bound port written next to the config);
+    # absent (-1) or `metrics = false` in the TOML = plane fully off
     ap.add_argument("--metrics-port", type=int, default=-1)
     args = ap.parse_args()
     return asyncio.run(run_node_process(args))

@@ -3,8 +3,10 @@ localhost platform of handel_tpu/sim/platform.py.
 
 Reference: simul/platform/platform.go:15-89 (lifecycle), localhost.go:16-266
 (keygen + registry CSV + allocation + process spawning + barriers + stats
-CSV). The remote platform and the per-process metrics ports are not ported
-yet (ROADMAP item 4).
+CSV). Each node process gets its own /metrics port (`metrics_port_plan`,
+written to `metrics_ports.json`) when the config sets `metrics = true`, and
+its own trace file under the run's `trace_<run>/` when it sets
+`trace = true`. The remote platform is not ported yet (ROADMAP item 4).
 
 Beyond the reference: for a device scheme on the card, the parent builds the
 CUDA kernels (kernels/build.py `build_all`) before it spawns the node
@@ -148,6 +150,69 @@ def preflight_ports(ports: list[int]) -> None:
                 s.close()
 
 
+def metrics_port_plan(cfg, nodes: int, nprocs: int) -> list[int]:
+    """Per-process metrics ports: one /metrics
+    endpoint per node process, so multi-process runs on one host never
+    collide. With base_port set the plan is fixed ABOVE the node block
+    (base_port + nodes + 1 + i — the master/monitor/verifier slots live
+    below base, the node block ends at base + nodes); otherwise ports are
+    probed like the node ports. Empty when `metrics = false` — the plane
+    then costs zero sockets and zero threads."""
+    if not cfg.metrics or nprocs <= 0:
+        return []
+    if cfg.base_port:
+        lo = cfg.base_port + nodes + 1
+        if lo + nprocs > 65536:
+            raise ValueError(
+                f"base_port {cfg.base_port} with {nodes} nodes leaves no "
+                f"room for {nprocs} metrics ports above the node block"
+            )
+        return [lo + i for i in range(nprocs)]
+    return free_ports(nprocs)
+
+
+def write_metrics_ports(
+    workdir: str, run_index: int, by_proc_ports: dict[int, int]
+) -> str:
+    """Persist the run's metrics endpoints (the scrapers' discovery file):
+    {"run": i, "addresses": {"<process>": "127.0.0.1:<port>"}}."""
+    import json
+
+    path = os.path.join(workdir, "metrics_ports.json")
+    with open(path, "w") as f:
+        json.dump(
+            {
+                "run": run_index,
+                "addresses": {
+                    str(p): f"127.0.0.1:{port}"
+                    for p, port in sorted(by_proc_ports.items())
+                },
+            },
+            f,
+            indent=1,
+        )
+    return path
+
+
+def preflight_ports(ports: list[int]) -> None:
+    """Fail fast if any fixed-plan port is already taken on this host:
+    a silent bind failure inside one node process otherwise surfaces only
+    as a full max_timeout_s barrier stall. Binds and immediately closes
+    (sequential, so no fd accumulation at 16k ports)."""
+    for p in ports:
+        for fam in (socket.SOCK_DGRAM, socket.SOCK_STREAM):
+            s = socket.socket(socket.AF_INET, fam)
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError as e:
+                raise OSError(
+                    f"fixed port {p} is already in use ({e}); pick a "
+                    f"different base_port"
+                ) from e
+            finally:
+                s.close()
+
+
 class LocalhostPlatform:
     """Spawn every node process on this machine (localhost.go:16-266)."""
 
@@ -215,6 +280,27 @@ class LocalhostPlatform:
         sync = SyncMaster(int(master_addr.rsplit(":", 1)[1]), active)
         await sync.start()
 
+        # span tracing: each node process dumps its flight recorder into the
+        # run's trace dir; `python -m handel_tpu_torch.sim trace <dir>`
+        # analyzes it
+        trace_dir = ""
+        if cfg.trace:
+            trace_dir = os.path.join(self.dir, f"trace_{run_index}")
+            os.makedirs(trace_dir, exist_ok=True)
+
+        # live telemetry: one /metrics endpoint per node process, plan
+        # written to the run dir BEFORE spawning so a scraper can attach
+        # from the first scrape
+        metrics_ports = metrics_port_plan(cfg, run.nodes, len(by_proc))
+        metrics_by_proc: dict[int, int] = {}
+        if metrics_ports:
+            if cfg.base_port:
+                preflight_ports(metrics_ports)
+            metrics_by_proc = dict(
+                zip((p for p, _ in sorted(by_proc.items())), metrics_ports)
+            )
+            write_metrics_ports(self.dir, run_index, metrics_by_proc)
+
         procs = []
         try:
             for pidx, ids in sorted(by_proc.items()):
@@ -235,6 +321,10 @@ class LocalhostPlatform:
                     "--ids",
                     ",".join(map(str, ids)),
                 ]
+                if trace_dir:
+                    cmd += ["--trace-dir", trace_dir]
+                if pidx in metrics_by_proc:
+                    cmd += ["--metrics-port", str(metrics_by_proc[pidx])]
                 procs.append(
                     await asyncio.create_subprocess_exec(
                         *cmd,
@@ -282,6 +372,7 @@ class LocalhostPlatform:
             csv_path=csv_path,
             outputs=outs,
             returncodes=rcs,
+            trace_dir=trace_dir,
         )
 
 
@@ -313,11 +404,12 @@ class LocalhostPlatform:
 
 
 class RunResult:
-    def __init__(self, ok, csv_path, outputs, returncodes):
+    def __init__(self, ok, csv_path, outputs, returncodes, trace_dir=""):
         self.ok = ok
         self.csv_path = csv_path
         self.outputs = outputs
         self.returncodes = returncodes
+        self.trace_dir = trace_dir
 
 
 def new_platform(name: str, cfg: SimConfig, workdir: str):

@@ -714,3 +714,42 @@ def test_bls12_381_launch_on_card(card, backend):
         assert mont_mul.launches > b1 and rns_mul_resident.launches == b2
     else:
         assert rns_mul_resident.launches > b2 and mont_mul.launches == b1
+
+
+def test_device_telemetry_reads_the_card(card, tmp_path):
+    """The metrics plane's device collector on the card: memory gauges from
+    torch.cuda.memory_stats above 0 while a tensor lives, and a profile
+    capture taken on another thread while this one launches B1 names B1's
+    kernel (the capture is process-wide, as the /debug/profile handler
+    runs on the metrics server's thread)."""
+    import json
+    import os
+    import threading
+
+    from handel_tpu_torch.parallel.telemetry import DeviceTelemetry
+
+    F = Field(bn.P, device=card)
+    a = F.pack(list(range(1, 4097)))
+    tel = DeviceTelemetry(device=card, trace_dir=str(tmp_path))
+    vals = tel.values()
+    assert vals["memBytesInUse"] > 0 and vals["memBytesReserved"] > 0
+    assert vals["memBytesPeak"] >= vals["memBytesInUse"]
+    assert {"memBytesInUse", "kernelLibsLoaded"} <= tel.gauge_keys()
+    stop = threading.Event()
+
+    def launch():
+        while not stop.is_set():
+            F.mul(a, a)
+            torch.cuda.synchronize(card)
+
+    worker = threading.Thread(target=launch)
+    worker.start()
+    try:
+        out = tel.profile(1.0)
+    finally:
+        stop.set()
+        worker.join()
+    with open(os.path.join(out, "kernels.json")) as f:
+        kernels = json.load(f)
+    assert any("mont_mul_kernel" in k for k in kernels), sorted(kernels)[:10]
+    assert tel.values()["profileCaptures"] == 1.0

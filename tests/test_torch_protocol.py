@@ -34,6 +34,34 @@ def run(coro):
     return asyncio.run(coro)
 
 
+class VirtualClockLoop(asyncio.SelectorEventLoop):
+    """An event loop whose clock stands still while callbacks are ready and
+    jumps to the next live timer when none is. A round whose work all runs
+    on the loop then sees its timers (the nodes' periodic updates) fire at
+    the same points of its work however slow the host is: the wall time a
+    verify or a fold takes no longer decides how many updates fall inside
+    it."""
+
+    def __init__(self):
+        super().__init__()
+        self._virtual_now = 0.0
+
+    def time(self) -> float:
+        return self._virtual_now
+
+    def _run_once(self) -> None:
+        if not self._ready:
+            due = [h.when() for h in self._scheduled if not h.cancelled()]
+            if due:
+                self._virtual_now = max(self._virtual_now, min(due))
+        super()._run_once()
+
+
+def run_on_virtual_clock(coro):
+    with asyncio.Runner(loop_factory=VirtualClockLoop) as runner:
+        return runner.run(coro)
+
+
 async def cluster_round(cluster: LocalCluster, timeout: float):
     cluster.start()
     try:
@@ -322,7 +350,10 @@ def test_per_node_round_sizes(n, launches, device_groups):
     verifier that accepts every candidate, and a device combine folding on
     the host. Its verify launches (128-lane chunks) and the merge groups
     that reach the device combine (4 points or more) are fixed by the
-    protocol: at 4 nodes no group reaches the device, so phase 7 needs 5."""
+    protocol: at 4 nodes no group reaches the device, so phase 7 needs 5.
+    The round runs on a virtual clock: on the wall clock, a host slowed by
+    other work let extra 10 ms periodic updates fall inside a verify, and
+    at 5 nodes the round took 10 launches and 2 device groups."""
     from handel_tpu_torch.models.bn254 import BN254Scheme
     from handel_tpu_torch.ops import bn254_ref as bn
 
@@ -344,7 +375,7 @@ def test_per_node_round_sizes(n, launches, device_groups):
         cluster = LocalCluster(n, scheme=scheme)
         return cluster, await cluster_round(cluster, 120.0)
 
-    cluster, results = run(go())
+    cluster, results = run_on_virtual_clock(go())
     assert len(results) == n
     values = [h.values() for h in cluster.handels.values()]
     assert sum(chunks) == launches

@@ -487,44 +487,29 @@ def test_device_from_env(monkeypatch):
 # -- parts not ported yet --------------------------------------------------
 
 
-class Args:
-    trace_dir = ""
-    verifier = ""
-    serve_verifier = 0
-    metrics_port = -1
-
-
 def unported(edit):
     cfg = pconfig.SimConfig(runs=[pconfig.RunConfig()])
-    args = Args()
-    edit(cfg, args)
-    return cfg, args
+    edit(cfg)
+    return cfg
 
 
 UNPORTED = {
-    "metrics": (lambda c, a: setattr(c, "metrics", True), "4"),
-    "trace": (lambda c, a: setattr(c, "trace", True), "4"),
-    "trace_dir": (lambda c, a: setattr(a, "trace_dir", "t"), "4"),
-    "baseline": (lambda c, a: setattr(c, "baseline", "gossipsub"), "9"),
-    "adversaries": (lambda c, a: setattr(c.runs[0].adversaries, "flooder", 1), "4"),
-    "chaos": (lambda c, a: setattr(c.chaos, "drop_rate", 0.1), "4"),
-    "geo": (lambda c, a: setattr(c.scenario, "planet", "planet-3region"), "4"),
-    "weights": (lambda c, a: setattr(c.scenario, "weight_profile", "linear"), "8"),
-    "quic": (lambda c, a: setattr(c, "network", "quic"), "4"),
-    "verifier": (lambda c, a: setattr(a, "verifier", "127.0.0.1:9"), "4"),
-    "serve_verifier": (lambda c, a: setattr(a, "serve_verifier", 9), "4"),
-    "metrics_port": (lambda c, a: setattr(a, "metrics_port", 9100), "4"),
-    "mesh_devices": (lambda c, a: setattr(c, "mesh_devices", 4), "7"),
+    "baseline": (lambda c: setattr(c, "baseline", "gossipsub"), "9"),
+    "churner": (lambda c: setattr(c.runs[0].adversaries, "churner", 1), "8"),
+    "geo": (lambda c: setattr(c.scenario, "planet", "planet-3region"), "4"),
+    "weights": (lambda c: setattr(c.scenario, "weight_profile", "linear"), "8"),
+    "quic": (lambda c: setattr(c, "network", "quic"), "4"),
+    "mesh_devices": (lambda c: setattr(c, "mesh_devices", 4), "7"),
 }
 
 
 @pytest.mark.parametrize("part", sorted(UNPORTED))
 def test_each_unported_option_raises_naming_its_roadmap_item(part):
     edit, item = UNPORTED[part]
-    cfg, args = unported(edit)
+    cfg = unported(edit)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
-        check_ported(cfg, args)
-    check_ported(pconfig.SimConfig(runs=[pconfig.RunConfig()]), Args())  # the base run passes
+        check_ported(cfg)
+    check_ported(pconfig.SimConfig(runs=[pconfig.RunConfig()]))  # the base run passes
 
 
 def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_path):
@@ -532,11 +517,11 @@ def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_
     `[service]` (the reference's node builds its verifier without it), the
     config dumps to the same text in both packages, and the scheme the node
     builds checks per candidate."""
-    cfg, args = unported(lambda c, a: None)
+    cfg = unported(lambda c: None)
     cfg.scheme = "bn254-cuda"
     cfg.service.sessions = 2  # [service] dumps only with sessions
     cfg.service.batch_check = "rlc"
-    check_ported(cfg, args)
+    check_ported(cfg)
     text = pconfig.dump_config(cfg)
     assert 'batch_check = "rlc"' in text
     path = tmp_path / "rlc.toml"
@@ -570,7 +555,7 @@ def test_unported_config_methods_name_their_roadmap_item(method, item):
 
 
 @pytest.mark.parametrize(
-    "sub", ["trace", "watch", "serve", "swarm", "soak", "load", "scenario", "confgen"]
+    "sub", ["watch", "serve", "swarm", "soak", "load", "scenario", "confgen"]
 )
 def test_unported_subcommands_exit_non_zero_naming_their_item(sub, monkeypatch, capsys):
     from handel_tpu_torch.sim.__main__ import main
@@ -748,3 +733,109 @@ def test_sim_cli_runs_a_config_and_prints_the_reference_lines(tmp_path):
     ]
     _, row = header_and_row(tmp_path / "w" / "results_1.csv")
     assert row["nodes"] == 5 and row["run"] == 1
+
+
+# -- adversaries, chaos, tracing, metrics and the verifier RPC -------------
+
+
+def adversarial_cfg(mod, scheme: str, nodes: int, threshold: int):
+    return mod.SimConfig(
+        network="udp", scheme=scheme, max_timeout_s=120.0, trace=True, metrics=True,
+        chaos=mod.ChaosConfig(drop_rate=0.10, corrupt_rate=0.05, duplicate_rate=0.05, seed=99),
+        runs=[mod.RunConfig(nodes=nodes, threshold=threshold, processes=2,
+                            adversaries=mod.AdversaryParams(invalid_signer=1, stale_replayer=1,
+                                                            flooder=1, flood_pps=100.0),
+                            handel=mod.HandelParams(period_ms=100.0, timeout_ms=200.0))],
+    )
+
+
+@pytest.mark.parametrize("scheme, nodes, threshold", [("bn254", 8, 4), ("fake", 16, 9)])
+def test_adversarial_traced_metrics_run_beside_reference(tmp_path, scheme, nodes, threshold):
+    """A small adversarial, chaos, traced and metrics localhost run through
+    both platforms: `success`, the same CSV columns, the byzantine cohort
+    and chaos on the monitor plane, one trace per process that the trace
+    CLI reads, and the metrics plan written."""
+    from handel_tpu_torch.sim import trace_cli
+
+    res = run_platform(PPlatform, adversarial_cfg(pconfig, scheme, nodes, threshold),
+                       tmp_path / "port")
+    assert res.ok
+    ref = run_platform(RPlatform, adversarial_cfg(rconfig, scheme, nodes, threshold),
+                       tmp_path / "ref")
+    assert ref.ok
+    header, row = header_and_row(res.csv_path)
+    rheader, _ = header_and_row(ref.csv_path)
+    assert set(header) == set(rheader)
+    assert row["adversaries"] == 3.0
+    assert row["net_chaosDropped_sum"] > 0
+    assert row["sigs_advFloodedCt_sum"] > 0 and row["sigs_advReplayedCt_sum"] >= 0
+    assert sorted(os.listdir(res.trace_dir)) == ["trace_0.json", "trace_1.json"]
+    report = trace_cli.stream_report([res.trace_dir])
+    assert report["files"] == 2 and report["critical_path"] is not None
+    ports = json.loads((tmp_path / "port" / "metrics_ports.json").read_text())
+    assert sorted(ports["addresses"]) == ["0", "1"]
+
+
+class FakeRegistryDevice:
+    """An engine that holds its registry, as a card's does: the verdict of
+    each fake candidate is its signature's validity."""
+
+    batch_size = 16
+
+    def dispatch(self, msg, reqs):
+        return [sig.valid for _bs, sig in reqs]
+
+    def fetch(self, handle):
+        return handle
+
+
+def test_node_verifies_through_a_verifier_server(tmp_path):
+    """Two node processes without an engine (`--verifier`) verify every
+    candidate through one VerifierServer in front of a shared service: the
+    run finishes OK and the server served their requests."""
+    from handel_tpu_torch.models.fake import FakeConstructor, FakeScheme
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+    from handel_tpu_torch.parallel.rpc_verifier import VerifierServer
+
+    nodes = 8
+    cfg = pconfig.SimConfig(network="udp", scheme="fake", max_timeout_s=60.0,
+                            runs=[pconfig.RunConfig(nodes=nodes, threshold=5, processes=2)])
+    cfg_path = tmp_path / "sim.toml"
+    cfg_path.write_text(pconfig.dump_config(cfg))
+    ports = free_ports(nodes + 1)
+    reg = tmp_path / "reg.csv"
+    pkeys.write_registry_csv(
+        str(reg), pkeys.generate_nodes(FakeScheme(), [f"127.0.0.1:{p}" for p in ports[:nodes]]))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+
+    async def go():
+        service = BatchVerifierService(FakeRegistryDevice(), fallback=None, max_delay_ms=1.0)
+        server = VerifierServer(service, FakeConstructor(), host="127.0.0.1")
+        await server.start()
+        sync = psync.SyncMaster(ports[nodes], nodes)
+        await sync.start()
+        procs = [await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "handel_tpu_torch.sim.node", "--config", str(cfg_path),
+            "--registry", str(reg), "--master", f"127.0.0.1:{ports[nodes]}",
+            "--ids", ",".join(str(i) for i in range(p, nodes, 2)),
+            "--verifier", f"127.0.0.1:{server.port}",
+            cwd=str(ROOT), env=env, stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.PIPE) for p in range(2)]
+        try:
+            await sync.wait_all(psync.STATE_START, 60)
+            await sync.wait_all(psync.STATE_END, 60)
+            outs = await asyncio.gather(*(p.communicate() for p in procs))
+        finally:
+            for p in procs:
+                if p.returncode is None:
+                    p.kill()
+            sync.stop()
+            server.stop()
+            service.stop()
+        return outs, [p.returncode for p in procs], server.values(), service.values()
+
+    outs, rcs, served, svc = asyncio.run(go())
+    assert rcs == [0, 0], [e.decode()[-2000:] for _, e in outs]
+    assert all(b"node process finished OK" in out for out, _ in outs)
+    assert served["rpcServedRequests"] > 0 and served["rpcServeErrors"] == 0
+    assert svc["verifierLaunches"] >= 1 and svc["failoverBatches"] == 0
