@@ -128,7 +128,8 @@ Phases, one line each, any failure exits non-zero with no result line:
               fp_backend "cios", max_timeout_s 600 and batch_size 128 (the
               file's 16 lanes would need about 190 host-bound launches in
               each process), and its run cut from 128 nodes to 64, threshold
-              120 to 60, to pay for phase 12. The run must exit 0,
+              120 to 60, to pay for phase 12, then to 16 nodes, threshold
+              15, to pay for phase 13. The run must exit 0,
               every node process must print `finished OK` (each node checks
               its own final signature on the host) and a `node process
               kernels` line in which its shared verifier launched at least
@@ -188,7 +189,8 @@ Phases, one line each, any failure exits non-zero with no result line:
               of their bounds, and its peak device memory; the summary line
               the nvidia-smi name and power limit.
  12. adversarial  the port's sim on the repo's results/handel_adversarial.toml
-              (64 nodes, threshold 33, 4 node processes sharing the card,
+              (64 nodes, threshold 33, cut to 32 and 17 to pay for phase 13
+              (ADV_RUN_CHANGES), 4 node processes sharing the card,
               UDP, [chaos] drop 0.10, corrupt 0.05, duplicate 0.05, seed 99,
               4 invalid signers, 2 stale replayers and a flooder at 100
               packets/s, period 100 ms, timeout 200 ms), as phase 9 runs its
@@ -220,7 +222,11 @@ Phases, one line each, any failure exits non-zero with no result line:
               coverage, which leaves that wait out, is printed beside it).
               The line adds each launch's queue, pack-and-dispatch,
               on-device and fetch times from the spans and the lane
-              occupancy.
+              occupancy. A launch's on-device span is its time on the
+              verify stream, from its first op to its last (CUDA events,
+              models/bn254_torch.py `device_span`), so the lanes' mean
+              occupancy must read at least the profile capture's busy share
+              (its kernels' device ms over its seconds).
      rpc      a VerifierServer on loopback in front of one
               BatchVerifierService(fallback=None) over phase 4's cios engine;
               four RPCVerifier clients, standing for hosts without a card,
@@ -240,11 +246,37 @@ Phases, one line each, any failure exits non-zero with no result line:
               all, the node's scorer bans the signer (12 reports over the
               ban score of 8), and the signer's next packet dies at
               validation.
+ 13. fleet    two runs of the repo's results/handel_watch_16.toml (16 nodes,
+              threshold 16, two node processes a host, UDP), loaded and
+              dumped by the port's sim/config.py with scheme "bn254-cuda",
+              fp_backend "cios", shared_verifier, batch_size 128 and
+              max_timeout_s 600 (REMOTE_CHANGES), at once, each in a
+              subprocess of its own process group under REMOTE_LIMIT_S:
+     remote   python -m handel_tpu_torch.sim --platform remote over two
+              localhost-as-remote hosts: host A `device = true`, host B
+              without a card. The platform ships the package into each
+              host's staging dir; one process of host A builds the kernels
+              there, serves its shared verifier over TCP, and every other
+              process (A's second, B's two) verifies through it. The run
+              must exit `success` with `finished OK` in every process (each
+              node checks its own final on the host oracle); the RPC
+              counters on the monitor plane above 0 (candidates sent by the
+              chip-less processes and served by A's); no failover, retry,
+              breaker transition or link error; B1 launched in A's serving
+              process only, and no other process initialised CUDA. The line
+              gives the wall, the launches, the candidates shipped over RPC
+              and B1's calls by width.
+     watch    python -m handel_tpu_torch.sim watch on the same config (the
+              localhost platform, each node process with a shared verifier
+              on the card) with --snapshot and --max-seconds: exit 0, the
+              dashboard rendered, the snapshot holds both processes'
+              endpoints; the line gives the metric families, and each
+              process launched B1.
 
 Each path of phases 4, 6, 7, 8, 10, 11 and 12's RPC and ban cases is one
 main-path run: every kernel's launch count is set to 0 just before it and
-read just after; phases 9's and 12's sim counts are the node processes'
-own, which start at 0. Then one JSON line of kernel figures, the seconds
+read just after; phases 9's, 12's and 13's sim counts are the node
+processes' own, which start at 0. Then one JSON line of kernel figures, the seconds
 each phase took (`phases`), the total, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -311,9 +343,9 @@ BLS_B2_WIDTHS = {"bls_f12_mul": 54 * 2 * BLS_LANES, "bls_768": 12 * BLS_LANES,
 SIM_CONFIG = "results/handel_128_device.toml"
 SIM_CHANGES = {"scheme": "bn254-cuda", "fp_backend": "cios", "max_timeout_s": 600.0,
                "batch_size": LANES}
-# ... and its run cut from 128 nodes to 64 (threshold 120 to 60, the same
-# 15/16 of the committee) to pay for phase 12
-SIM_RUN_CHANGES = {"nodes": 64, "threshold": 60}
+# ... and its run cut from 128 nodes to 16 (threshold 120 to 15, the same
+# 15/16 of the committee): to 64 to pay for phase 12, then to 16 for 13
+SIM_RUN_CHANGES = {"nodes": 16, "threshold": 15}
 # the subprocess's own limit: a stalled barrier fails inside max_timeout_s
 SIM_LIMIT_S = 660.0
 # phase 12: the repo's adversarial config (64 nodes, threshold 33, 4 node
@@ -325,8 +357,21 @@ ADV_CONFIG = "results/handel_adversarial.toml"
 ADV_CHANGES = {"scheme": "bn254-cuda", "fp_backend": "cios", "shared_verifier": True,
                "batch_size": LANES, "trace": True, "metrics": True,
                "metrics_linger_s": 5.0, "trace_capacity": 1 << 20}
+# ... and its run cut from 64 nodes to 32 (threshold 33 to 17, the same
+# half of the committee and then one) to pay for phase 13
+ADV_RUN_CHANGES = {"nodes": 32, "threshold": 17}
 # its subprocess limit, below the config's max_timeout_s of 600
 ADV_LIMIT_S = 540.0
+# phase 13: the repo's watched 16-node config through the remote platform
+# (one card host serving a chip-less host) and through `sim watch`, with
+# these changes (module docstring); the file's 60 s would not cover host
+# A's kernel build and prepare before the START barrier
+REMOTE_CONFIG = "results/handel_watch_16.toml"
+REMOTE_CHANGES = {"scheme": "bn254-cuda", "fp_backend": "cios", "shared_verifier": True,
+                  "batch_size": LANES, "max_timeout_s": 600.0}
+# the subprocesses' limit, and watch's --max-seconds under it
+REMOTE_LIMIT_S = 480.0
+WATCH_MAX_S = 420.0
 # the /debug/profile capture's seconds, and how many captures may miss B1
 PROFILE_S = 2.0
 PROFILE_TRIES = 3
@@ -1464,6 +1509,22 @@ def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launc
     return fig
 
 
+def kernel_lines(workdir: str, prefix: str, phase: str) -> dict[str, dict]:
+    """{file: `node process kernels` JSON} of a run dir's node process
+    outputs; each must also say `finished OK`."""
+    out = {}
+    for name in sorted(os.listdir(workdir)):
+        if not (name.startswith(prefix) and name.endswith(".out")):
+            continue
+        with open(os.path.join(workdir, name)) as f:
+            text = f.read()
+        if "node process finished OK" not in text:
+            raise AssertionError(f"{phase}: {name} has no `finished OK` line:\n{text[-3000:]}")
+        (out[name],) = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+                        if ln.startswith("node process kernels: ")]
+    return out
+
+
 def sim_phase() -> dict:
     """Phase 9: the port's sim entry point on the repo's 128-node device
     config (module docstring), in a subprocess of its own process group, so
@@ -1511,15 +1572,7 @@ def sim_phase() -> dict:
             tails = "\n".join(f"--- {k}\n{v[-3000:]}" for k, v in logs.items())
             raise AssertionError(
                 f"sim: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}\n{tails}")
-        processes = []
-        for name, text in logs.items():
-            if not name.endswith(".out"):
-                continue
-            if "node process finished OK" not in text:
-                raise AssertionError(f"sim: {name} has no `finished OK` line:\n{text[-3000:]}")
-            (kern,) = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
-                       if ln.startswith("node process kernels: ")]
-            processes.append(kern)
+        processes = list(kernel_lines(tmp, "node_0_", "sim").values())
         with open(os.path.join(tmp, "results_0.csv"), newline="") as f:
             header, row = list(csv.reader(f))[:2]
     col = dict(zip(header, map(float, row)))
@@ -1773,6 +1826,8 @@ def adversarial_phase() -> dict:
     for key, value in ADV_CHANGES.items():
         setattr(cfg, key, value)
     run = cfg.runs[0]
+    for key, value in ADV_RUN_CHANGES.items():
+        setattr(run, key, value)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_adv_") as tmp:
         cfg_path = os.path.join(tmp, "sim.toml")
         with open(cfg_path, "w") as f:
@@ -1811,15 +1866,7 @@ def adversarial_phase() -> dict:
             tails = "\n".join(f"--- {k}\n{v[-3000:]}" for k, v in logs.items())
             raise AssertionError(
                 f"adversarial: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}\n{tails}")
-        processes = []
-        for name, text in logs.items():
-            if not name.endswith(".out"):
-                continue
-            if "node process finished OK" not in text:
-                raise AssertionError(f"adversarial: {name} has no `finished OK` line")
-            (kern,) = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
-                       if ln.startswith("node process kernels: ")]
-            processes.append(kern)
+        processes = list(kernel_lines(tmp, "node_0_", "adversarial").values())
         banned = sorted({int(m) for text in logs.values()
                          for m in re.findall(r"origin (\d+) is banned", text)})
         with open(os.path.join(tmp, "results_0.csv"), newline="") as f:
@@ -1851,9 +1898,17 @@ def adversarial_phase() -> dict:
         if col[f"device_verifier_{k}_sum"] != 0:
             raise AssertionError(f"adversarial: device_verifier_{k}_sum = "
                                  f"{col[f'device_verifier_{k}_sum']}")
+    # a launch's on-device span is its time on the verify stream: the lanes
+    # are busy at least as much of their window as the profiled kernels
+    busy_share = live["profiles"][-1]["device_ms"] / (PROFILE_S * 1e3)
+    occupancy = traced["lane_occupancy"]["mean"]
+    if occupancy < busy_share:
+        raise AssertionError(f"adversarial: lane occupancy {occupancy} under the "
+                             f"profile's busy share {busy_share}")
     dispatch_calls = col["device_dispatch_dispatchCalls_sum"]
     fig = {
-        "config": ADV_CONFIG, "changed": ADV_CHANGES, "nodes": run.nodes,
+        "config": ADV_CONFIG, "changed": ADV_CHANGES, "reduced": ADV_RUN_CHANGES,
+        "nodes": run.nodes,
         "threshold": run.resolved_threshold(), "processes": run.processes,
         "network": cfg.network, "chaos": {k: getattr(cfg.chaos, k) for k in (
             "drop_rate", "corrupt_rate", "duplicate_rate", "seed")},
@@ -1881,6 +1936,7 @@ def adversarial_phase() -> dict:
         "b1_launches": sum(p["launches"]["fp_mont_mul"] for p in processes),
         "b1_launches_in_round": sum(p["launches_in_round"]["fp_mont_mul"] for p in processes),
         "live": live, "trace": traced,
+        "lane_occupancy_vs_busy": {"lane_occupancy": occupancy, "profile_busy_share": busy_share},
     }
     line("adversarial", **fig)
     return fig
@@ -2089,6 +2145,173 @@ def ban_case(cons, pks, sks, counters) -> dict:
     for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
         if launches[k] != 0:
             raise AssertionError(f"the ban case launched {k} {launches[k]} times")
+    return fig
+
+
+def kill_nodes_under(path: str) -> None:
+    """SIGKILL every node process whose command line names `path`: the
+    remote platform starts each host's node processes in sessions of their
+    own (their `--tag` is the host's staging dir), out of reach of the
+    orchestrator's process group."""
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if "handel_tpu_torch.sim.node" in cmd and path in cmd:
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+            except OSError:
+                pass
+
+
+def fleet_phase() -> dict:
+    """Phase 13 (module docstring): the remote platform's fleet and `sim
+    watch` on the repo's watched config, as two subprocesses at once, each
+    in a process group of its own under REMOTE_LIMIT_S. Raises on any
+    failed check; returns the figures."""
+    from handel_tpu_torch.core.metrics import parse_exposition
+    from handel_tpu_torch.sim.config import HostSpec, dump_config, load_config
+
+    root = Path(__file__).resolve().parent
+    cfg = load_config(str(root / REMOTE_CONFIG))
+    for key, value in REMOTE_CHANGES.items():
+        setattr(cfg, key, value)
+    run = cfg.runs[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        watch_toml, remote_toml = (os.path.join(tmp, f"{n}.toml") for n in ("watch", "remote"))
+        with open(watch_toml, "w") as f:
+            f.write(dump_config(cfg))
+        cfg.hosts = [HostSpec(connect="local", workdir=os.path.join(tmp, "hostA"), device=True),
+                     HostSpec(connect="local", workdir=os.path.join(tmp, "hostB"))]
+        with open(remote_toml, "w") as f:
+            f.write(dump_config(cfg))
+        remote_dir, watch_dir = os.path.join(tmp, "remote"), os.path.join(tmp, "watch")
+        snapshot_path = os.path.join(tmp, "snapshot.txt")
+        env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
+        cmds = {
+            "remote": [sys.executable, "-m", "handel_tpu_torch.sim", "--config", remote_toml,
+                       "--workdir", remote_dir, "--platform", "remote"],
+            "watch": [sys.executable, "-m", "handel_tpu_torch.sim", "watch", watch_toml,
+                      "--workdir", watch_dir, "--interval", "1.0", "--snapshot", snapshot_path,
+                      "--max-seconds", str(WATCH_MAX_S)],
+        }
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + REMOTE_LIMIT_S
+        procs, walls, outs = {}, {}, {}
+        try:
+            for name, cmd in cmds.items():
+                procs[name] = subprocess.Popen(
+                    cmd, cwd=root, env=env, stdout=open(os.path.join(tmp, f"{name}.out"), "w"),
+                    stderr=open(os.path.join(tmp, f"{name}.err"), "w"), text=True,
+                    start_new_session=True)
+            while len(walls) < len(procs):
+                for name, proc in procs.items():
+                    if name not in walls and proc.poll() is not None:
+                        walls[name] = time.perf_counter() - t0
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"fleet: no result within {REMOTE_LIMIT_S} s "
+                                         f"(done: {sorted(walls)})")
+                time.sleep(0.5)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+            kill_nodes_under(tmp)
+        for name in cmds:
+            with open(os.path.join(tmp, f"{name}.out")) as f, \
+                    open(os.path.join(tmp, f"{name}.err")) as g:
+                outs[name] = (f.read(), g.read())
+        for name, proc in procs.items():
+            out, err = outs[name]
+            if proc.returncode != 0 or "run 0: success" not in out:
+                run_dir = remote_dir if name == "remote" else watch_dir
+                tails = "\n".join(
+                    f"--- {n}\n{open(os.path.join(run_dir, n)).read()[-2500:]}"
+                    for n in sorted(os.listdir(run_dir)) if n.startswith("node_0_"))
+                raise AssertionError(f"fleet: {name} exit {proc.returncode}\n{out[-1500:]}\n"
+                                     f"{err[-3000:]}\n{tails}")
+
+        # (a) the remote platform: one card process, the rest chip-less
+        remote = kernel_lines(remote_dir, "node_0_", "fleet")
+        with open(os.path.join(remote_dir, "results_0.csv"), newline="") as f:
+            header, row = list(csv.reader(f))[:2]
+        col = dict(zip(header, map(float, row)))
+        if len(remote) != 2 * run.processes:
+            raise AssertionError(f"fleet: {len(remote)} node processes, expected "
+                                 f"{2 * run.processes}: {sorted(remote)}")
+        servers = {k: v for k, v in remote.items() if v["verifier_launches"] is not None}
+        chipless = {k: v for k, v in remote.items() if k not in servers}
+        if len(servers) != 1 or not next(iter(servers)).startswith("node_0_0_"):
+            raise AssertionError(f"fleet: serving processes {sorted(servers)}, expected one "
+                                 "of host A")
+        (server,) = servers.values()
+        if not (server["initialized_cuda"] and server["verifier_launches"] >= 1
+                and server["launches_in_round"]["fp_mont_mul"] > 0):
+            raise AssertionError(f"fleet: host A's server did not launch B1: {server}")
+        for name, k in chipless.items():
+            if k["initialized_cuda"] or any(k["launches"].values()):
+                raise AssertionError(f"fleet: chip-less {name} touched the card: {k}")
+        for k in ("device_rpc_rpcSentCandidates_sum", "device_rpcserve_rpcServedCandidates_sum",
+                  "device_verifier_verifierLaunches_sum"):
+            if not col.get(k, 0.0) > 0:
+                raise AssertionError(f"fleet: {k} = {col.get(k)}")
+        for k in ("device_rpc_rpcLinkErrors_sum", "device_verifier_failoverBatches_sum",
+                  "device_verifier_deviceRetryCt_sum", "device_verifier_breakerTransitionsCt_sum"):
+            if col[k] != 0:
+                raise AssertionError(f"fleet: {k} = {col[k]}")
+
+        # (b) watch: both endpoints snapshotted, every process on the card
+        with open(snapshot_path) as f:
+            snap = f.read()
+        texts = [t for t in re.split(r"^# scrape http://\S+/metrics\n", snap, flags=re.M)
+                 if t.strip()]
+        with open(os.path.join(watch_dir, "metrics_ports.json")) as f:
+            endpoints = json.load(f)["addresses"]
+        if len(texts) != len(endpoints) or len(endpoints) != run.processes:
+            raise AssertionError(f"fleet: snapshot of {len(texts)} endpoints, the run "
+                                 f"served {sorted(endpoints.values())}")
+        families = [parse_exposition(t) for t in texts]
+        watched = kernel_lines(watch_dir, "node_0_", "fleet")
+        if len(watched) != run.processes or not all(
+                k["initialized_cuda"] and k["launches_in_round"]["fp_mont_mul"] > 0
+                for k in watched.values()):
+            raise AssertionError(f"fleet: watch's node processes: {watched}")
+        if "aggregation wave" not in outs["watch"][0]:
+            raise AssertionError("fleet: watch rendered no dashboard")
+    fig = {
+        "config": REMOTE_CONFIG, "changed": REMOTE_CHANGES, "nodes": run.nodes,
+        "threshold": run.resolved_threshold(), "processes_a_host": run.processes,
+        "wall_s": walls,
+        "remote": {
+            "hosts": {"A": "device", "B": "chip-less"},
+            "launches": col["device_verifier_verifierLaunches_sum"],
+            "candidates": col["device_verifier_verifierCandidates_sum"],
+            "rpc_sent_candidates": col["device_rpc_rpcSentCandidates_sum"],
+            "rpc_sent_requests": col["device_rpc_rpcSentRequests_sum"],
+            "rpc_served_candidates": col["device_rpcserve_rpcServedCandidates_sum"],
+            "sigen_wall_max_s": col["sigen_wall_max"],
+            "b1_launches": server["launches"]["fp_mont_mul"],
+            "b1_launches_in_round": server["launches_in_round"]["fp_mont_mul"],
+            "b1_widths": server["fp_mont_mul_widths"],
+            "chipless_b1_launches": sum(k["launches"]["fp_mont_mul"] for k in chipless.values()),
+            "chipless_cuda_initialized": [k["initialized_cuda"] for k in chipless.values()],
+            "node_processes": remote,
+        },
+        "watch": {
+            "endpoints": len(texts),
+            "families": len(set().union(*families)),
+            "families_by_endpoint": [len(f) for f in families],
+            "b1_launches_in_round": [k["launches_in_round"]["fp_mont_mul"]
+                                     for k in watched.values()],
+            "verifier_launches": [k["verifier_launches"] for k in watched.values()],
+        },
+    }
+    line("fleet", **fig)
     return fig
 
 
@@ -2609,6 +2832,9 @@ def main() -> int:
     done("rpc")
     ban = ban_case(cons, pks, sks, counters)
     done("ban")
+    torch.cuda.empty_cache()  # phase 13's node processes share the card
+    fleet = fleet_phase()
+    done("fleet")
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
@@ -2670,7 +2896,13 @@ def main() -> int:
               on_rpc={"launches": rpc["kernel_launches"]["fp_mont_mul"],
                       "widths": rpc["widths"].get("fp_mont_mul", {})},
               on_ban_case={"launches": ban["kernel_launches"]["fp_mont_mul"],
-                           "widths": ban["widths"].get("fp_mont_mul", {})}),
+                           "widths": ban["widths"].get("fp_mont_mul", {})},
+              on_fleet={"device_host": {
+                  "launches": fleet["remote"]["b1_launches"],
+                  "launches_in_round": fleet["remote"]["b1_launches_in_round"],
+                  "widths": fleet["remote"]["b1_widths"]},
+                  "chipless_hosts": fleet["remote"]["chipless_b1_launches"],
+                  "watch_launches_in_round": fleet["watch"]["b1_launches_in_round"]}),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],

@@ -11,13 +11,14 @@ Beyond the reference: `batch_size` (max signatures per device verify
 launch), `verifier` (an async batch verifier in place of the scheme's own
 `batch_verify`), and the peer-penalty and flood bounds. Fields of the JAX
 package's Config that serve planes the port has not ported yet
-(sessions, epochs, regions, stake weights, the windowed store and the
-simulated verify sleep) are not here, nor are its factory hooks that no
-caller of the port sets (bitset, partitioner, evaluator, processing and
-scorer factories, and the peer-penalty switch): a node always builds
-`BitSet`, `BinomialPartitioner`, the store as its evaluator,
-`BatchProcessing` and a `PeerScorer`. Every field here has the JAX
-package's default.
+(sessions, epochs, stake weights, the windowed store and the simulated
+verify sleep) are not here, nor are its factory hooks that no caller of
+the port sets (bitset, partitioner and scorer factories, and the
+peer-penalty switch): a node always builds `BitSet`,
+`BinomialPartitioner` and a `PeerScorer`. The evaluator and processing
+factories (the sim's `evaluator = "eval1"` / `"fifo"`) and the geo
+plane's `region` tag are here. Every field here has the JAX package's
+default.
 """
 
 from __future__ import annotations
@@ -60,6 +61,12 @@ class Config:
 
     # (handel, levels) -> TimeoutStrategy; default = LinearTimeout
     new_timeout: Optional[Callable] = None
+    # (store, handel) -> SigEvaluator; default = the store itself
+    new_evaluator: Optional[Callable] = None
+    # processing pipeline class (BatchProcessing ctor signature); None =
+    # BatchProcessing. FifoProcessing gives the reference's deprecated
+    # arrival-order strategy for A/B runs (processing.go:380-493)
+    new_processing: Optional[Callable] = None
 
     logger: Logger = DEFAULT_LOGGER
     # entropy for per-level candidate shuffling (config.go:55)
@@ -79,6 +86,13 @@ class Config:
     # per contribution). Shared across co-located nodes — each node records
     # under its own id as the Chrome-trace tid.
     recorder: Optional[object] = None
+
+    # -- WAN scenario plane (network/geo.py) ------------------------------
+    # region label this node aggregates from (GeoNetwork planet model). Tags
+    # every send/recv/verify/merge trace span so the critical-path analyzer
+    # can attribute WAN hops by region pair. "" = untagged (span args
+    # unchanged).
+    region: str = ""
 
     # -- batch verification ------------------------------------------------
     # max candidates per device verification launch

@@ -215,6 +215,10 @@ class Handel:
         # without coordination; generated only while tracing, so untraced
         # packets stay span_id=0 (no trailer on the wire)
         self._span_seq = 0
+        # WAN region tag (network/geo.py): rides every span this node emits
+        # so the critical-path analyzer can attribute hops to region pairs
+        # (sender's send span vs receiver's recv span)
+        self._sargs = {"region": self.c.region} if self.c.region else {}
 
         # batched aggregate combine: device constructors expose
         # `device_combine`, and the shim routes the store's merge/patch
@@ -243,12 +247,18 @@ class Handel:
             )
         )
 
-        self.proc = BatchProcessing(
+        evaluator = (
+            self.c.new_evaluator(self.store, self)
+            if self.c.new_evaluator
+            else self.store
+        )
+        processing_cls = self.c.new_processing or BatchProcessing
+        self.proc = processing_cls(
             self.partitioner,
             constructor,
             msg,
             registry.public_keys(),
-            self.store,
+            evaluator,
             self._on_verified,
             batch_size=self.c.batch_size,
             verifier=self.c.verifier,
@@ -343,7 +353,12 @@ class Handel:
                     t0,
                     tid=self._tid,
                     cat="net",
-                    args={"origin": p.origin, "level": p.level, "span": p.span_id},
+                    args={
+                        "origin": p.origin,
+                        "level": p.level,
+                        "span": p.span_id,
+                        **self._sargs,
+                    },
                 )
             ms.recv_ts = t0
             ms.span_id = p.span_id
@@ -371,6 +386,7 @@ class Handel:
                         "rts": int(t0 * 1e6),
                         "span": p.span_id,
                         "hop": p.hop,
+                        **self._sargs,
                     },
                 )
                 if p.span_id:
@@ -453,6 +469,7 @@ class Handel:
                     "rts": int(sp.recv_ts * 1e6),
                     "ind": sp.is_ind,
                     "span": sp.span_id,
+                    **self._sargs,
                 },
             )
             if sp.span_id:
@@ -497,7 +514,11 @@ class Handel:
                 "threshold_reached",
                 tid=self._tid,
                 cat="protocol",
-                args={"card": sig.cardinality(), "threshold": self.threshold},
+                args={
+                    "card": sig.cardinality(),
+                    "threshold": self.threshold,
+                    **self._sargs,
+                },
             )
         self.final_signatures.put_nowait(sig)
 
@@ -606,6 +627,7 @@ class Handel:
                     "card": ms.cardinality(),
                     "peers": len(ids),
                     "span": sid,
+                    **self._sargs,
                 },
             )
             # flow start: receivers' recv/merge steps bind to this span

@@ -42,6 +42,13 @@ class SigEvaluator(Protocol):
     def evaluate(self, sp: IncomingSig) -> int: ...
 
 
+class Evaluator1:
+    """Scores everything 1 — verify every signature (processing.go:46-51)."""
+
+    def evaluate(self, sp: IncomingSig) -> int:
+        return 1
+
+
 class Filter(Protocol):
     """Pre-queue filter (processing.go:293-297)."""
 

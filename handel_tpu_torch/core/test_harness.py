@@ -22,8 +22,10 @@ Faults and observability: `loss_rate` drops routed packets, `chaos` wraps
 each node's network in a seeded `ChaosNetwork`, `adversaries` seats
 byzantine roles (sim/adversary.py), `recorder` shares one flight recorder
 (core/trace.py) across the nodes and `metrics_port` serves the cluster's
-/metrics (core/metrics.py). The JAX package's geo model (ROADMAP item 4)
-and its churner role (item 8) raise NotImplementedError.
+/metrics (core/metrics.py), and `geo` wraps each node's network in a
+`GeoNetwork` (network/geo.py: region-pair WAN delay, chaos composed on top)
+and tags its spans with its region. The JAX package's churner role
+(ROADMAP item 8) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from handel_tpu_torch.core.net import Listener, Packet
 from handel_tpu_torch.core.timeout import InfiniteTimeout
 from handel_tpu_torch.models.fake import FakeScheme
 from handel_tpu_torch.network.chaos import ChaosConfig, ChaosNetwork
+from handel_tpu_torch.network.geo import GeoConfig, GeoNetwork
 
 __all__ = [
     "FakeScheme", "InProcessNetwork", "InProcessRouter", "LocalCluster", "run_cluster",
@@ -100,17 +103,12 @@ class LocalCluster:
         seed: int = 1,
         loss_rate: float = 0.0,
         chaos: ChaosConfig | None = None,
-        geo=None,
+        geo: GeoConfig | None = None,
         adversaries: dict[int, str] | None = None,
         recorder=None,
         metrics_port: int | None = None,
         verifier_service=None,
     ):
-        if geo is not None:
-            raise NotImplementedError(
-                "the geo planet model (network/geo.py) is not ported to "
-                "handel_tpu_torch yet (ROADMAP item 4)"
-            )
         self.n = n
         self.scheme = scheme or FakeScheme()
         self.msg = msg
@@ -133,7 +131,9 @@ class LocalCluster:
 
         self.handels: dict[int, Handel] = {}
         self.adversaries: dict[int, Handel] = {}
-        has_byzantine = bool(self.offline or self.roles or chaos)
+        # geo delays are not failures, but they do defer deliveries past
+        # the no-timeout harness's patience — keep real timeouts on
+        has_byzantine = bool(self.offline or self.roles or chaos or geo)
         for i in range(n):
             if i in self.offline:
                 continue  # offline nodes are simply never built (test.go:105-113)
@@ -151,7 +151,19 @@ class LocalCluster:
                 # (handel_test.go:99-101, 442-455)
                 cfg.new_timeout = InfiniteTimeout
             net = InProcessNetwork(self.router, f"inproc-{i}")
-            if chaos is not None and chaos.any():
+            if geo is not None:
+                # geo-latency planet model (network/geo.py): region-pair
+                # WAN delay, chaos faults composed on top when given
+                net = GeoNetwork(
+                    net,
+                    geo.for_node(i),
+                    chaos=chaos.for_node(i)
+                    if chaos is not None and chaos.any()
+                    else None,
+                )
+                if not cfg.region:
+                    cfg.region = geo.region_of(i)
+            elif chaos is not None and chaos.any():
                 net = ChaosNetwork(net, chaos.for_node(i))
             if i in self.roles:
                 from handel_tpu_torch.sim.adversary import build_adversary

@@ -50,6 +50,12 @@ may run while the fetch of launch n waits; meanwhile the nodes' merges call
     runs it), so no two threads race to build that state, and the registry
     bank (written by blocking copies) and the prefix table are only read
     from then on.
+  * on the card a launch's handle carries two timing events on the verify
+    stream, recorded before its first op and after its last;
+    `device_span(handle)` maps them onto the trace clock (core/trace.py
+    `trace_now`) through one anchor event recorded on the idle stream, so
+    the shared verifier's `launch_on_device` span is the launch's time on
+    the stream, not the tail left after a host-bound dispatch returns.
 
 `batch_check="rlc"` checks a launch as one random linear combination
 (models/rlc.py): a G1 MSM over the signatures, a G2 MSM over the aggregate
@@ -78,6 +84,7 @@ import torch
 import torch.nn.functional as nnf
 
 from handel_tpu_torch.core.bitset import BitSet
+from handel_tpu_torch.core.trace import trace_now
 from handel_tpu_torch.models import rlc
 from handel_tpu_torch.models.bn254 import (
     BN254Constructor,
@@ -264,6 +271,9 @@ class BN254Device:
         self._verify_stream = torch.cuda.Stream(self.device) if pin else None
         self._combine_stream = torch.cuda.Stream(self.device) if pin else None
         self._dispatch_lock = threading.Lock()
+        # (event, trace_now()) recorded together on the idle verify stream:
+        # the origin that `device_span` maps launch events from
+        self._clock_anchor = None
         self._stage = [
             _StagingSet(self.n, batch_size, self.MISS_CAP, self.curves.F.nlimbs, pin)
             for _ in range(self.stage_sets)
@@ -522,7 +532,7 @@ class BN254Device:
         fetching thread: each relaunch takes the dispatch lock and the
         verify stream like any dispatch, and is waited for outside the
         lock."""
-        _, items, valid_j, top, k = handle
+        _, items, valid_j, top, k = handle[:5]
         verdicts = [False] * k
         pending = [top]
 
@@ -542,8 +552,41 @@ class BN254Device:
 
     def _issue(self, fn, *args):
         """fn(*args) as a dispatch: under the lock, on the verify stream."""
+        return self._issue_timed(fn, *args)[0]
+
+    def _issue_timed(self, fn, *args):
+        """`_issue`, returning (fn(*args), events): on the card the launch's
+        timing events, recorded on the verify stream before its first op
+        and after its last; None on the CPU."""
         with self._dispatch_lock, torch.cuda.stream(self._verify_stream):
-            return fn(*args)
+            stream = self._verify_stream
+            if stream is None:
+                return fn(*args), None
+            if self._clock_anchor is None:
+                stream.synchronize()  # idle: the anchor runs as recorded
+                anchor = torch.cuda.Event(enable_timing=True)
+                self._clock_anchor = (anchor, trace_now())
+                anchor.record(stream)
+            first = torch.cuda.Event(enable_timing=True)
+            first.record(stream)
+            out = fn(*args)
+            last = torch.cuda.Event(enable_timing=True)
+            last.record(stream)
+            return out, (first, last)
+
+    def device_span(self, handle):
+        """(start, end) of a fetched launch on the verify stream, in
+        `trace_now` seconds: its first op to its last. None on the CPU."""
+        events = handle[-1]
+        if events is None:
+            return None
+        first, last = events
+        last.synchronize()
+        anchor, t0 = self._clock_anchor
+        return (
+            t0 + anchor.elapsed_time(first) / 1e3,
+            t0 + anchor.elapsed_time(last) / 1e3,
+        )
 
     @staticmethod
     def _first_verdict(launch) -> bool:
@@ -585,9 +628,12 @@ class BN254Device:
         time. In RLC mode the handle carries the combined check in flight;
         bisection, if any, runs at `fetch`."""
         if self.batch_check == "rlc":
-            return self._issue(self._dispatch_rlc, [(msg, bs, sig) for bs, sig in requests])
-        verdicts, done = self._issue(self._dispatch_one, msg, requests)
-        return (verdicts, len(requests), done)
+            rlc_handle, events = self._issue_timed(
+                self._dispatch_rlc, [(msg, bs, sig) for bs, sig in requests]
+            )
+            return rlc_handle + (events,)
+        (verdicts, done), events = self._issue_timed(self._dispatch_one, msg, requests)
+        return (verdicts, len(requests), done, events)
 
     def fetch(self, handle) -> list[bool]:
         """Wait for a dispatched launch's verdicts; host-ordered. Waits on
@@ -596,7 +642,7 @@ class BN254Device:
         relaunches as dispatches do); safe from any thread."""
         if isinstance(handle[0], str):
             return self._fetch_rlc(handle)
-        verdicts, k, done = handle
+        verdicts, k, done = handle[:3]
         if done is not None:
             done.synchronize()
         return [bool(v) for v in verdicts[:k].tolist()]
@@ -639,13 +685,16 @@ class BN254Device:
         In RLC mode mixed messages GROUP rather than widen: the combined
         check costs one Miller loop per distinct message plus one."""
         if self.batch_check == "rlc":
-            return self._issue(self._dispatch_rlc, [(it[0], it[2], it[3]) for it in items])
+            rlc_handle, events = self._issue_timed(
+                self._dispatch_rlc, [(it[0], it[2], it[3]) for it in items]
+            )
+            return rlc_handle + (events,)
         msgs = [it[0] for it in items]
         reqs = [(it[2], it[3]) for it in items]
         if len(set(msgs)) <= 1:
             return self.dispatch(msgs[0] if msgs else b"", reqs)
-        verdicts, done = self._issue(self._dispatch_one, None, reqs, msgs)
-        return (verdicts, len(reqs), done)
+        (verdicts, done), events = self._issue_timed(self._dispatch_one, None, reqs, msgs)
+        return (verdicts, len(reqs), done, events)
 
     # -- batched aggregate combine (the store's merge path) ---------------------
 

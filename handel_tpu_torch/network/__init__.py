@@ -1,9 +1,10 @@
 """Real transports for the protocol plane — the part of handel_tpu/network/
 that the port has: the wire codecs and the byte counter (encoding.py), the
-UDP and TCP transports (udp.py, tcp.py, stream.py), and the chaos plane
-(chaos.py: `ChaosConfig`, the `[chaos]` TOML section, and the
-fault-injecting `ChaosNetwork`). The TLS transport and the geo model are not
-ported yet (ROADMAP item 4).
+UDP, TCP and TLS ("quic") transports (udp.py, tcp.py, quic.py, stream.py),
+the chaos plane (chaos.py: `ChaosConfig`, the `[chaos]` TOML section, and
+the fault-injecting `ChaosNetwork`), the geo planet model (geo.py:
+`GeoNetwork`, region-pair WAN delay over the chaos wrapper) and the
+transport demo (`python -m handel_tpu_torch.network.examples`).
 
 The in-process transport lives in core/test_harness.py; these sockets carry
 protocol traffic between processes and hosts. Signature batches ride the
@@ -18,6 +19,7 @@ from handel_tpu_torch.network.encoding import (
     Encoding,
 )
 from handel_tpu_torch.network.tcp import TCPNetwork
+from handel_tpu_torch.network.quic import QUICNetwork
 from handel_tpu_torch.network.udp import UDPNetwork
 
 __all__ = [
@@ -28,4 +30,5 @@ __all__ = [
     "ChaosNetwork",
     "UDPNetwork",
     "TCPNetwork",
+    "QUICNetwork",
 ]

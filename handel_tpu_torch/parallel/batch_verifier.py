@@ -36,7 +36,12 @@ launch's host pack (`dispatch_pack`) and device wall (`device_verify`) on
 its own trace thread (`SERVICE_TID`), each lane's launch lifecycle
 (`launch_queued`, `launch_staged`, `launch_on_device`, `launch_fetched`) on
 the lane's thread, and breaker, failover and lifecycle instants. Untraced,
-each hook is one `is None` test.
+each hook is one `is None` test. `launch_on_device` runs from the
+dispatch's return to the verdicts, as in the reference, unless the engine
+can say when the launch ran: a card engine's `device_span(handle)` gives
+its first and last op on the verify stream (models/bn254_torch.py), which
+is what an eager, host-bound dispatch needs, since its ops run while it
+issues them.
 """
 
 
@@ -934,6 +939,10 @@ class BatchVerifierService:
                     args={"n": len(items), "device": lane.index},
                 )
                 largs = self._lane_span_args(lane, items)
+                # on a card engine: the launch's own interval on its stream
+                span = getattr(lane.engine, "device_span", None)
+                on_device = span(handle) if span is not None else None
+                t_on, t_off = on_device or (t_disp, t_end)
                 # lane-timeline remainder of the lifecycle: in flight on
                 # the chip since dispatch, and the verdict transfer window.
                 # Mesh launches carry their own span name so the critical-
@@ -941,8 +950,8 @@ class BatchVerifierService:
                 # walls distinctly from per-chip lane walls.
                 self.rec.span(
                     "launch_on_mesh" if lane.mesh else "launch_on_device",
-                    t_disp,
-                    t_end,
+                    t_on,
+                    t_off,
                     tid=lane.trace_tid,
                     cat="device",
                     args=largs,

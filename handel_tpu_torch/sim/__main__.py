@@ -4,7 +4,10 @@ Reference: simul/main.go:24-68 — load the TOML config, run each RunConfig
 in order on the chosen platform, abort a run after MaxTimeout.
 
 Usage: python -m handel_tpu_torch.sim --config sim.toml --workdir out/
+           [--platform localhost|remote]
        python -m handel_tpu_torch.sim trace <trace-dir>   (analyze a traced run)
+       python -m handel_tpu_torch.sim watch sim.toml      (live /metrics dashboard)
+       python -m handel_tpu_torch.sim confgen --scenario geo     (emit TOMLs)
 
 The node processes run their device scheme on the card unless
 HANDEL_TORCH_DEVICE=cpu (utils/torchenv.py). The reference's other
@@ -22,13 +25,11 @@ from handel_tpu_torch.sim.platform import run_simulation
 
 #: subcommand -> ROADMAP item that ports it
 NOT_PORTED = {
-    "watch": "8 (sim/watch_cli.py)",
     "serve": "8 (service/driver.py run_service)",
     "swarm": "8 (swarm/)",
     "soak": "8 (sim/soak.py)",
     "load": "8 (sim/load.py)",
     "scenario": "8 (scenario/)",
-    "confgen": "4 (sim/confgen.py)",
 }
 
 
@@ -39,6 +40,30 @@ def main() -> int:
         from handel_tpu_torch.sim.trace_cli import main as trace_main
 
         return trace_main(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "watch":
+        # live-telemetry subcommand (sim/watch_cli.py): launch a run with
+        # metrics on and render its endpoints, or --attach to a run dir
+        from handel_tpu_torch.sim.watch_cli import main as watch_main
+
+        return watch_main(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "confgen":
+        # experiment-matrix generator (sim/confgen.py): emit ready-to-run
+        # TOMLs; --scenario narrows to named entries (geo, churn,
+        # weighted, geo_weighted, node_count, ...), default = all
+        gap = argparse.ArgumentParser(
+            prog="python -m handel_tpu_torch.sim confgen"
+        )
+        gap.add_argument(
+            "--scenario", action="append", default=None,
+            help="scenario name (repeatable); omit for the full matrix",
+        )
+        gap.add_argument("--outdir", default="configs")
+        gargs = gap.parse_args(sys.argv[2:])
+        from handel_tpu_torch.sim.confgen import generate
+
+        for p in generate(gargs.outdir, gargs.scenario):
+            print(p)
+        return 0
     if len(sys.argv) > 1 and sys.argv[1] in NOT_PORTED:
         sub = sys.argv[1]
         print(

@@ -14,9 +14,9 @@ models/registry.py), `batch_size` (device launch width), `shared_verifier`
 
 The port parses and dumps the whole TOML format, byte for byte as the JAX
 package does, so every config of the repo loads. The dataclasses are data;
-the methods that build a part the port has not ported yet (the geo planet
-model, stake weights, the evaluator strategies and the simulated verify
-sleep) raise NotImplementedError naming its ROADMAP item.
+the methods that build a part the port has not ported yet (stake weights
+and the simulated verify sleep) raise NotImplementedError naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,13 +47,6 @@ class HandelParams:
     evaluator: str = "store"
 
     def to_config(self, threshold: int, seed: int) -> Config:
-        if self.evaluator not in ("store", "eval1", "fifo"):
-            raise ValueError(f"unknown evaluator {self.evaluator!r}")
-        if self.evaluator != "store":
-            raise NotImplementedError(
-                f"evaluator {self.evaluator!r} is not ported yet: the "
-                "processing and evaluator factory hooks (ROADMAP item 8)"
-            )
         if self.unsafe_sleep_verify_ms:
             raise NotImplementedError(
                 "unsafe_sleep_verify_ms is not ported yet: "
@@ -66,6 +59,16 @@ class HandelParams:
         c.level_timeout = self.timeout_ms / 1000.0
         c.contributions = threshold
         c.rand = random.Random(seed)
+        if self.evaluator == "eval1":
+            from handel_tpu_torch.core.processing import Evaluator1
+
+            c.new_evaluator = lambda store, h: Evaluator1()
+        elif self.evaluator == "fifo":
+            from handel_tpu_torch.core.processing import FifoProcessing
+
+            c.new_processing = FifoProcessing
+        elif self.evaluator != "store":
+            raise ValueError(f"unknown evaluator {self.evaluator!r}")
         return c
 
 
@@ -370,12 +373,21 @@ class ScenarioParams:
         return self.geo_enabled() or self.weights_enabled() or self.joins > 0
 
     def geo_config(self):
-        """The reference resolves the preset or inline matrix into a
-        validated GeoConfig (network/geo.py, scenario/planets.py)."""
-        raise NotImplementedError(
-            "the geo planet model is not ported yet: network/geo.py "
-            "(ROADMAP item 4) and scenario/ (ROADMAP item 8)"
-        )
+        """Resolve preset/inline matrix into a validated GeoConfig
+        (region placement derives per node via .for_node)."""
+        from handel_tpu_torch.network.geo import GeoConfig
+        from handel_tpu_torch.scenario.planets import planet_preset
+
+        if self.planet:
+            regions, rtt = planet_preset(self.planet)
+        else:
+            regions, rtt = list(self.regions), [list(r) for r in self.rtt_ms]
+        return GeoConfig(
+            regions=regions,
+            rtt_ms=rtt,
+            jitter_ms=self.jitter_ms,
+            seed=self.geo_seed,
+        ).validate()
 
     def make_weights(self, n: int):
         """The reference builds the stake weights (scenario/weights.py)."""

@@ -17,28 +17,38 @@ utils/torchenv.py). The service has no host fallback: a failing device
 fails the run instead of degrading into host verification (ROADMAP §C,
 deviation 4). `--serve-verifier PORT` serves that service to other
 processes over TCP, and `--verifier HOST:PORT` makes a process without an
-engine verify through such a server (parallel/rpc_verifier.py).
+engine verify through such a server (parallel/rpc_verifier.py): that
+process builds its scheme on the CPU without a warmup, so it holds no CUDA
+context, launches no kernel, and folds its merges on the host (the
+remote platform's chip-less hosts, sim/remote.py).
 
-Faults and observability, as in the reference: `[chaos]` wraps each node's
-transport in a seeded `ChaosNetwork`, `[runs.adversaries]` seats byzantine
-roles (sim/adversary.py), `--trace-dir` records a flight recorder per
-process and dumps it as `trace_<first id>.json` after the END barrier, and
+Transports, faults and observability, as in the reference: `network`
+picks UDP, TCP or the TLS stream transport (`"quic"`, network/quic.py,
+which needs the `cryptography` package), `[scenario]`'s planet wraps each
+node's transport in a seeded `GeoNetwork` (network/geo.py) and tags its
+spans with its region, `[chaos]` wraps each node's transport in a seeded
+`ChaosNetwork` (the `GeoNetwork` applies both when both are set),
+`[runs.adversaries]` seats byzantine roles (sim/adversary.py),
+`--trace-dir` records a flight recorder per process and dumps it as
+`trace_<first id>.json` after the END barrier, and
 `metrics = true` with `--metrics-port` serves /metrics, /healthz, /readyz
 and /debug/profile (core/metrics.py, parallel/telemetry.py).
 
 Cut from the reference, each raising NotImplementedError naming its ROADMAP
-item (`check_ported`): the comparison baselines, the churner role, the geo
-model, stake weights, the TLS transport and a mesh wider than one device.
+item (`check_ported`): the comparison baselines, the churner role, stake
+weights and a mesh wider than one device.
 The node ignores `[service]`, as the reference's does: its `batch_check` is
 for the `serve` and `load` paths, and a node's verifier checks per
 candidate.
 
 Beyond the reference: a device-scheme process prints one `node process
 kernels:` line (JSON) before `finished OK`: its kernel launch counts, over
-the whole process and between the START and END barriers, its peak device
-memory, the calls and seconds of the store's device combines, which run on
-the event loop beside the service's dispatches, and its shared verifier's
-launches.
+the whole process and between the START and END barriers, B1's launches by
+column count, its peak device memory, whether it initialised CUDA at all,
+the calls and seconds of the store's device combines, which run on the
+event loop beside the service's dispatches, and its shared verifier's
+launches. Its nodes stay in the round until the END barrier
+(`serve_until_end`, ROADMAP §C deviation 5).
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from handel_tpu_torch.core.trace import FlightRecorder
 from handel_tpu_torch.models.registry import is_device_scheme, new_scheme
 from handel_tpu_torch.network.chaos import ChaosNetwork
 from handel_tpu_torch.network.encoding import CounterEncoding
+from handel_tpu_torch.network.quic import QUICNetwork
 from handel_tpu_torch.network.tcp import TCPNetwork
 from handel_tpu_torch.network.udp import UDPNetwork
 from handel_tpu_torch.sim import keys as simkeys
@@ -84,9 +95,7 @@ def check_ported(cfg: SimConfig) -> None:
     parts = [
         (bool(cfg.baseline), f"baseline = {cfg.baseline!r}", "9"),
         *run_parts,
-        (cfg.scenario.geo_enabled(), "the geo planet model (network/geo.py)", "4"),
         (cfg.scenario.weights_enabled(), "stake weights", "8 (6h)"),
-        (cfg.network == "quic", 'network = "quic"', "4"),
         (cfg.mesh_devices > 1, f"mesh_devices = {cfg.mesh_devices}", "7"),
     ]
     for on, what, item in parts:
@@ -96,12 +105,76 @@ def check_ported(cfg: SimConfig) -> None:
             )
 
 
+def stall_timeout_s(max_timeout_s: float) -> float:
+    """How long a process waits for its honest nodes' final signatures:
+    a little under the platform's END wait (the same `max_timeout_s`), so
+    that a stalled process prints its STALLED lines and exits before the
+    platform kills it."""
+    return max(0.5 * max_timeout_s, max_timeout_s - 5.0)
+
+
+async def serve_until_end(handels, threshold, timeout_s, on_finals, end_barrier):
+    """Run a process's nodes to the END of the whole fleet.
+
+    Waits up to `timeout_s` for the final signature of every honest node of
+    the process (adversarial roles never emit one), printing each node's
+    progress as a STALLED line when it runs out; hands {id: final} to
+    `on_finals` (the measures and the final check); then keeps every node
+    of the process in the protocol until `end_barrier()` returns, and only
+    then stops them (ROADMAP §C, deviation 5). The reference stops a
+    process's nodes as soon as its own honest nodes are done
+    (handel_tpu/sim/node.py:466-476): a node of another process that still
+    misses a contribution lost on the wire then never gets it, because
+    Handel sends each signature to each peer once and re-sends only when
+    it improves (core/handel.py `Level.active`).
+    """
+    honest = [
+        (nid, h, net)
+        for nid, h, net in handels
+        if getattr(h, "role", None) is None
+    ]
+    try:
+        finals = await asyncio.wait_for(
+            asyncio.gather(*(h.final_signatures.get() for _, h, _ in honest)),
+            timeout=timeout_s,
+        )
+    except asyncio.TimeoutError:
+        # stall diagnostics: per-node progress is the only evidence a
+        # multi-process deadlock leaves behind
+        for nid, h, net in handels:
+            best = h.store.full_signature()
+            card = best.cardinality() if best else 0
+            vals = net.values()
+            print(
+                f"node {nid}: STALLED at {card}/{threshold} "
+                f"(sent={vals.get('sentPackets')} rcvd={vals.get('rcvdPackets')} "
+                f"dropped={vals.get('droppedPackets')})",
+                file=sys.stderr,
+            )
+        raise
+    on_finals(dict(zip((nid for nid, _, _ in honest), finals)))
+    try:
+        await end_barrier()
+    finally:
+        for _, h, net in handels:
+            h.stop()
+            net.stop()
+    return finals
+
+
 def _kernel_counts() -> dict[str, int]:
     from handel_tpu_torch.kernels.fp_mont import mont_mul
     from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
 
     return {"fp_mont_mul": mont_mul.launches,
             "rns_mont_mul_resident": rns_mul_resident.launches}
+
+
+def _b1_widths() -> dict[str, int]:
+    """Kernel B1's launches in this process by column count."""
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+
+    return {str(cols): n for cols, n in sorted(mont_mul.widths.items())}
 
 
 async def run_node_process(args) -> int:
@@ -147,28 +220,28 @@ async def run_node_process(args) -> int:
 
     device_scheme = is_device_scheme(cfg.scheme)
     dev = None
+    scheme_kw = {}
     if device_scheme:
         from handel_tpu_torch.utils.torchenv import device_from_env
 
-        dev = device_from_env()  # raises for cuda on a host without a card
-    scheme = new_scheme(
-        cfg.scheme,
-        **(
-            {
-                "batch_size": cfg.batch_size,
-                "fp_backend": cfg.fp_backend,
-                # residency only means something on the rns backend; None
-                # lets the pairing layer decide (and avoids the
-                # explicit-True-on-cios error)
-                "rns_resident": (
-                    cfg.rns_resident if cfg.fp_backend == "rns" else None
-                ),
-                "device": dev,
-            }
-            if device_scheme
-            else {}
-        ),
-    )
+        # a chip-less process (`--verifier`) keeps its scheme on the host:
+        # its candidates verify on the card host's engine, and its merges
+        # fold on the host (device_combine declines before prepare)
+        dev = device_from_env() if not args.verifier else None
+        scheme_kw = {
+            "batch_size": cfg.batch_size,
+            "fp_backend": cfg.fp_backend,
+            # residency only means something on the rns backend; None
+            # lets the pairing layer decide (and avoids the
+            # explicit-True-on-cios error)
+            "rns_resident": (
+                cfg.rns_resident if cfg.fp_backend == "rns" else None
+            ),
+            "device": dev,
+        }
+        if args.verifier:
+            scheme_kw.update(device="cpu", warmup=False)
+    scheme = new_scheme(cfg.scheme, **scheme_kw)
     ids = [int(x) for x in args.ids.split(",") if x != ""]
     threshold = run.resolved_threshold()
 
@@ -192,6 +265,11 @@ async def run_node_process(args) -> int:
 
     records = simkeys.read_registry_csv(args.registry)
     registry = simkeys.registry_from_records(records, scheme)
+
+    # WAN scenario plane: geo placement, derived identically in every
+    # process from the shared TOML
+    scen = cfg.scenario
+    geo_base = scen.geo_config() if scen.geo_enabled() else None
 
     # byzantine roles (sim/adversary.py): recompute the allocator's offline
     # set locally so every process derives the SAME id -> role mapping
@@ -267,9 +345,21 @@ async def run_node_process(args) -> int:
         enc = CounterEncoding()
         if cfg.network == "tcp":
             net = TCPNetwork(rec.address, encoding=enc)
+        elif cfg.network == "quic":
+            net = QUICNetwork(rec.address, encoding=enc)
         else:
             net = UDPNetwork(rec.address, encoding=enc)
-        if cfg.chaos.any():
+        if geo_base is not None:
+            # geo-latency planet model (network/geo.py): region-pair WAN
+            # delay, chaos faults composed on top when any rate is set
+            from handel_tpu_torch.network.geo import GeoNetwork
+
+            net = GeoNetwork(
+                net,
+                geo_base.for_node(nid),
+                chaos=cfg.chaos.for_node(nid) if cfg.chaos.any() else None,
+            )
+        elif cfg.chaos.any():
             # fault-injection plane (network/chaos.py): same transport
             # underneath, seeded per-link faults on top
             net = ChaosNetwork(net, cfg.chaos.for_node(nid))
@@ -278,6 +368,8 @@ async def run_node_process(args) -> int:
         hconf = run.handel.to_config(threshold, seed=nid)
         hconf.batch_size = cfg.batch_size
         hconf.recorder = recorder
+        if geo_base is not None:
+            hconf.region = geo_base.region_of(nid)
         if shared_service is not None:
             hconf.verifier = shared_service.verify
         elif rpc_client is not None:
@@ -361,57 +453,36 @@ async def run_node_process(args) -> int:
             ms = [TimeMeasure(sink, "sigen"), CounterIO(sink, "net", net),
                   CounterIO(sink, "sigs", h), HistogramIO(sink, "sigs", h)]
             if hasattr(net, "histograms"):
-                # chaos delay distribution -> net_delayMs_p50/_p90/_p99
+                # chaos/geo delay distribution -> net_delayMs_p50/_p90/_p99
                 ms.append(HistogramIO(sink, "net", net))
             measures.append(tuple(ms))
         else:
             measures.append(None)
         h.start()
 
-    # adversarial nodes never emit an honest final signature — only the
-    # honest cohort gates run completion
-    honest = [
-        (nid, h, net)
-        for nid, h, net in handels
-        if getattr(h, "role", None) is None
-    ]
-    try:
-        finals = await asyncio.wait_for(
-            asyncio.gather(*(h.final_signatures.get() for _, h, _ in honest)),
-            timeout=cfg.max_timeout_s,
-        )
-    except asyncio.TimeoutError:
-        # stall diagnostics: per-node progress is the only evidence a
-        # multi-process deadlock leaves behind
-        for nid, h, net in handels:
-            best = h.store.full_signature()
-            card = best.cardinality() if best else 0
-            vals = net.values()
-            print(
-                f"node {nid}: STALLED at {card}/{threshold} "
-                f"(sent={vals.get('sentPackets')} rcvd={vals.get('rcvdPackets')} "
-                f"dropped={vals.get('droppedPackets')})",
-                file=sys.stderr,
-            )
-        raise
-
     ok = True
-    finals_by_nid = dict(zip((nid for nid, _, _ in honest), finals))
-    for (nid, h, net), m in zip(handels, measures):
-        if m:
-            for meas in m:
-                meas.record()
-        ms = finals_by_nid.get(nid)
-        if ms is not None and not verify_multisignature(
-            MSG, ms, registry, scheme.constructor
-        ):
-            print(f"node {nid}: FINAL SIGNATURE INVALID", file=sys.stderr)
-            ok = False
-        h.stop()
-        net.stop()
 
-    await asyncio.gather(
-        *(s.signal_and_wait(STATE_END, cfg.max_timeout_s) for s in slaves)
+    def on_finals(finals_by_nid):
+        nonlocal ok
+        for (nid, h, net), m in zip(handels, measures):
+            if m:
+                for meas in m:
+                    meas.record()
+            ms = finals_by_nid.get(nid)
+            if ms is not None and not verify_multisignature(
+                MSG, ms, registry, scheme.constructor
+            ):
+                print(f"node {nid}: FINAL SIGNATURE INVALID", file=sys.stderr)
+                ok = False
+
+    async def end_barrier():
+        await asyncio.gather(
+            *(s.signal_and_wait(STATE_END, cfg.max_timeout_s) for s in slaves)
+        )
+
+    await serve_until_end(
+        handels, threshold, stall_timeout_s(cfg.max_timeout_s), on_finals,
+        end_barrier,
     )
     # every node everywhere is done: stop serving and verifying before the
     # batch-plane record and the trace dump, so that both hold the same
@@ -444,12 +515,16 @@ async def run_node_process(args) -> int:
         print("node process kernels: " + json.dumps({
             "ids": len(ids),
             "device": str(dev),
+            "initialized_cuda": torch.cuda.is_initialized(),
             "launches": at_end,
             "launches_in_round": {
                 k: v - kernels_at_start[k] for k, v in at_end.items()
             },
+            "fp_mont_mul_widths": _b1_widths(),
             "max_memory_allocated": (
-                torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+                torch.cuda.max_memory_allocated(dev)
+                if dev is not None and dev.type == "cuda"
+                else None
             ),
             "device_combine": combine_timer.values(),
             "verifier_launches": (
@@ -473,6 +548,10 @@ def main() -> int:
     ap.add_argument("--monitor", default="")
     ap.add_argument("--run", type=int, default=0)
     ap.add_argument("--ids", required=True)
+    # run-scoping marker only: never read, but present in argv so the
+    # orchestrator's cleanup pkill can match THIS run's node processes
+    # without killing other simulations on a shared host (sim/remote.py)
+    ap.add_argument("--tag", default="")
     # batch-plane RPC (parallel/rpc_verifier.py): serve the local shared
     # verifier on this port / verify through the card host's server
     ap.add_argument("--serve-verifier", type=int, default=0)

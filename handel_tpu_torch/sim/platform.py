@@ -6,7 +6,8 @@ Reference: simul/platform/platform.go:15-89 (lifecycle), localhost.go:16-266
 CSV). Each node process gets its own /metrics port (`metrics_port_plan`,
 written to `metrics_ports.json`) when the config sets `metrics = true`, and
 its own trace file under the run's `trace_<run>/` when it sets
-`trace = true`. The remote platform is not ported yet (ROADMAP item 4).
+`trace = true`. The multi-host platform is sim/remote.py
+(`--platform remote`).
 
 Beyond the reference: for a device scheme on the card, the parent builds the
 CUDA kernels (kernels/build.py `build_all`) before it spawns the node
@@ -194,23 +195,14 @@ def write_metrics_ports(
     return path
 
 
-def preflight_ports(ports: list[int]) -> None:
-    """Fail fast if any fixed-plan port is already taken on this host:
-    a silent bind failure inside one node process otherwise surfaces only
-    as a full max_timeout_s barrier stall. Binds and immediately closes
-    (sequential, so no fd accumulation at 16k ports)."""
-    for p in ports:
-        for fam in (socket.SOCK_DGRAM, socket.SOCK_STREAM):
-            s = socket.socket(socket.AF_INET, fam)
-            try:
-                s.bind(("127.0.0.1", p))
-            except OSError as e:
-                raise OSError(
-                    f"fixed port {p} is already in use ({e}); pick a "
-                    f"different base_port"
-                ) from e
-            finally:
-                s.close()
+def keep_node_outputs(workdir: str, run_index: int, names, outs) -> None:
+    """Each node process's (stdout, stderr) as node_<run>_<name>.out/.err
+    in the run directory: the only diagnostics a failed or stalled process
+    leaves, and the `node process kernels` lines of a device run."""
+    for name, (out, err) in zip(names, outs):
+        for ext, data in (("out", out), ("err", err)):
+            with open(os.path.join(workdir, f"node_{run_index}_{name}.{ext}"), "wb") as f:
+                f.write(data)
 
 
 class LocalhostPlatform:
@@ -230,9 +222,9 @@ class LocalhostPlatform:
         check_ported(cfg)
         scheme_kw = {}
         if is_device_scheme(cfg.scheme):
-            from handel_tpu_torch.utils.torchenv import device_from_env
+            from handel_tpu_torch.utils.torchenv import device_type_from_env
 
-            if device_from_env().type == "cuda":
+            if device_type_from_env() == "cuda":
                 from handel_tpu_torch.kernels.build import build_all
 
                 build_all()
@@ -351,12 +343,7 @@ class LocalhostPlatform:
             sync.stop()
             monitor.stop()
 
-        for pidx, (out, err) in zip(sorted(by_proc), outs):
-            for ext, data in (("out", out), ("err", err)):
-                with open(
-                    os.path.join(self.dir, f"node_{run_index}_{pidx}.{ext}"), "wb"
-                ) as f:
-                    f.write(data)
+        keep_node_outputs(self.dir, run_index, sorted(by_proc), outs)
 
         # stats CSV (localhost.go:201-206)
         monitor.stats.extra = run.stats_extra(run_index)
@@ -374,7 +361,6 @@ class LocalhostPlatform:
             returncodes=rcs,
             trace_dir=trace_dir,
         )
-
 
     async def _barriers(self, sync, procs, comms) -> bool:
         """Wait for the START and END barriers. False when one times out, or
@@ -413,16 +399,14 @@ class RunResult:
 
 
 def new_platform(name: str, cfg: SimConfig, workdir: str):
-    """Platform dispatch (simul/platform/platform.go:59 NewPlatform). The
-    reference's "remote" platform (sim/remote.py) is not ported yet."""
+    """Platform dispatch (simul/platform/platform.go:59 NewPlatform)."""
     if name == "localhost":
         return LocalhostPlatform(cfg, workdir)
     if name == "remote":
-        raise NotImplementedError(
-            "the remote platform is not ported to handel_tpu_torch yet "
-            "(ROADMAP item 4)"
-        )
-    raise ValueError(f"unknown platform {name!r} (available: localhost)")
+        from handel_tpu_torch.sim.remote import RemotePlatform
+
+        return RemotePlatform(cfg, workdir)
+    raise ValueError(f"unknown platform {name!r} (available: localhost, remote)")
 
 
 async def run_simulation(

@@ -21,8 +21,8 @@ cluster) and answers the questions the CSV cannot:
 Options: `--merged out.json` writes the combined timeline (open in
 chrome://tracing or Perfetto); `--top N` bounds the attribution table;
 `--report out.json` writes the machine-readable `trace_report.json`. Both
-packages' CLIs give the same report for the same files. `--plot` needs
-sim/plots.py, not ported yet (ROADMAP item 4): it raises.
+packages' CLIs give the same report for the same files. `--plot out.png`
+draws the wave via sim/plots.py (needs `matplotlib`).
 """
 
 from __future__ import annotations
@@ -763,11 +763,6 @@ def main(argv: list[str]) -> int:
         help="write the machine-readable trace_report.json here",
     )
     args = ap.parse_args(argv)
-    if args.plot:
-        raise NotImplementedError(
-            "--plot needs sim/plots.py, not ported to handel_tpu_torch yet "
-            "(ROADMAP item 4)"
-        )
 
     # one file resident at a time: a 65k-node swarm's dumps stream through
     report = stream_report(args.paths, top_k=args.top)
@@ -838,6 +833,17 @@ def main(argv: list[str]) -> int:
         with open(args.merged, "w") as f:
             json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
         print(f"\nmerged trace -> {args.merged}")
+    if args.plot:
+        from handel_tpu_torch.sim.plots import plot_trace_timeline
+
+        plot_trace_timeline(
+            {
+                int(k): (w["first"], w["median"], w["last"])
+                for k, w in wave.items()
+            },
+            args.plot,
+        )
+        print(f"wave plot -> {args.plot}")
     return 0
 
 

@@ -44,3 +44,19 @@ def device_from_env() -> torch.device:
     """The device named by $HANDEL_TORCH_DEVICE, else `cuda`, through
     `resolve_device`: unset on a host without a card, it raises."""
     return resolve_device(os.environ.get(DEVICE_ENV) or None)
+
+
+def device_type_from_env() -> str:
+    """`cuda` or `cpu`, as $HANDEL_TORCH_DEVICE names it, checked as
+    `device_from_env` checks it but without creating a CUDA context: for a
+    process that only starts the card's users (the sim's platforms, `sim
+    watch`), which must not hold a context of its own beside theirs."""
+    dev = torch.device(os.environ.get(DEVICE_ENV) or DEFAULT_DEVICE)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            f"is False; set {DEVICE_ENV}=cpu to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device type {dev.type!r}: 'cuda' or 'cpu'")
+    return dev.type

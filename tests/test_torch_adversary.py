@@ -108,8 +108,12 @@ def test_churner_and_unknown_roles_raise():
         LocalCluster(8, adversaries={7: "churner"})
     with pytest.raises(ValueError, match="unknown adversary role"):
         LocalCluster(8, adversaries={7: "bogus"})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 4\b"):
-        LocalCluster(8, geo=object())
+    # a malformed planet is refused before any node is built, as in the
+    # reference (the geo model itself is held in tests/test_torch_geo.py)
+    from handel_tpu_torch.network.geo import GeoConfig
+
+    with pytest.raises(ValueError, match="matrix"):
+        LocalCluster(8, geo=GeoConfig(regions=("a", "b"), rtt_ms=((0.0, 1.0),)))
 
 
 @pytest.mark.parametrize("pkg", ["port", "ref"])

@@ -753,3 +753,146 @@ def test_device_telemetry_reads_the_card(card, tmp_path):
         kernels = json.load(f)
     assert any("mont_mul_kernel" in k for k in kernels), sorted(kernels)[:10]
     assert tel.values()["profileCaptures"] == 1.0
+
+
+# -- the launch's span on the card, the fleet and watch (phases 12, 13) -----------
+
+
+def test_launch_on_device_span_is_the_launch_on_its_stream(card):
+    """A traced service over the card engine: each launch's
+    `launch_on_device` span runs from its first op on the verify stream to
+    its last (the engine's CUDA events mapped onto the trace clock), so it
+    starts while the host-bound dispatch still issues (inside
+    `launch_staged`) and ends by the verdicts (`launch_fetched`); the lane
+    is busy most of its window. On the CPU the engine gives no span."""
+    import asyncio
+
+    from handel_tpu_torch.core.trace import FlightRecorder
+    from handel_tpu_torch.models.bn254_torch import BN254TorchConstructor
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+    from handel_tpu_torch.sim import trace_cli
+
+    eng, sks, pks = _service_engine(card)
+    reqs, want = _service_candidates(sks)
+    rec = FlightRecorder(capacity=1 << 12)
+
+    async def go():
+        svc = BatchVerifierService(eng, max_delay_ms=1.0, fallback=None, recorder=rec)
+        try:
+            got = []
+            for i in range(0, len(reqs), 4):  # one launch at a time
+                got += await svc.verify(b"service engine", pks, reqs[i:i + 4])
+            return got
+        finally:
+            svc.stop()
+
+    assert asyncio.run(go()) == want
+    events = rec.export()["traceEvents"]
+    spans = {name: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                          if e.get("ph") == "X" and e["name"] == name)
+             for name in ("launch_staged", "launch_on_device", "launch_fetched")}
+    assert len(spans["launch_on_device"]) == len(spans["launch_staged"]) == 2
+    for (s0, s1), (d0, d1), (_, f1) in zip(*spans.values()):
+        slack = 1e3  # µs: the anchor's own record, and the host's clock reads
+        assert s0 - slack <= d0 < s1  # the first op ran while the dispatch issued
+        assert d1 <= f1 + slack and d1 - d0 > 0.5 * (s1 - s0)
+    assert trace_cli.lane_occupancy(events)["mean"] > 0.5
+    cpu = BN254TorchConstructor(batch_size=4, device="cpu", warmup=False).prepare(pks)
+    assert cpu.device_span(cpu.dispatch(b"service engine", reqs[:1])) is None
+
+
+def _fleet_toml(tmp_path, **changes):
+    from pathlib import Path
+
+    from handel_tpu_torch.sim.config import RunConfig, SimConfig, dump_config
+
+    cfg = SimConfig(network="udp", scheme="bn254-cuda", shared_verifier=True, batch_size=16,
+                    max_timeout_s=300.0, runs=[RunConfig(nodes=8, threshold=8, processes=1)],
+                    **changes)
+    path = Path(tmp_path) / "fleet.toml"
+    path.write_text(dump_config(cfg))
+    return path
+
+
+def _kernel_lines(run_dir):
+    import json
+
+    out = {}
+    for p in sorted(run_dir.glob("node_0_*.out")):
+        text = p.read_text()
+        assert "node process finished OK" in text, text[-2000:]
+        (out[p.name],) = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+                          if ln.startswith("node process kernels: ")]
+    return out
+
+
+def test_remote_platform_device_host_serves_a_chipless_host(card, tmp_path):
+    """`--platform remote` on two localhost-as-remote hosts (A with the
+    card, B without): A's process builds the kernels in its staging dir and
+    launches B1; B's process ships its candidates over RPC and never
+    initialises CUDA."""
+    import csv
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from handel_tpu_torch.sim.config import HostSpec
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = _fleet_toml(tmp_path, hosts=[
+        HostSpec(connect="local", workdir=str(tmp_path / "hostA"), device=True),
+        HostSpec(connect="local", workdir=str(tmp_path / "hostB"))])
+    env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
+               PYTHONPATH=os.pathsep.join([str(root), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-m", "handel_tpu_torch.sim", "--config", str(cfg), "--workdir",
+         str(tmp_path / "out"), "--platform", "remote"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert list((tmp_path / "hostA" / "build" / "torch_kernels").glob("libfp_mont-*.so"))
+    kern = _kernel_lines(tmp_path / "out")
+    a, b = kern["node_0_0_0.out"], kern["node_0_1_1.out"]
+    assert a["initialized_cuda"] and a["launches_in_round"]["fp_mont_mul"] > 0
+    assert a["verifier_launches"] >= 1
+    assert not b["initialized_cuda"] and b["launches"]["fp_mont_mul"] == 0
+    with open(tmp_path / "out" / "results_0.csv") as f:
+        row = next(csv.DictReader(f))
+    assert float(row["device_rpc_rpcSentCandidates_sum"]) > 0
+    assert float(row["device_verifier_failoverBatches_sum"]) == 0
+
+
+WATCH_CONTEXT = r"""
+import sys
+import torch
+from handel_tpu_torch.sim.watch_cli import main
+rc = main(sys.argv[1:])
+print("watch cuda initialized:", torch.cuda.is_initialized())
+sys.exit(rc)
+"""
+
+
+def test_watch_runs_a_card_fleet_without_a_context_of_its_own(card, tmp_path):
+    """`sim watch` launches a card run on a thread of its own process: the
+    node processes launch B1, the dashboard renders, and the watching
+    process never initialises CUDA."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = _fleet_toml(tmp_path, metrics=True)
+    env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
+               PYTHONPATH=os.pathsep.join([str(root), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-c", WATCH_CONTEXT, str(cfg), "--workdir", str(tmp_path / "w"),
+         "--interval", "0.5", "--snapshot", str(tmp_path / "snap.txt")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "watch cuda initialized: False" in out.stdout
+    assert "aggregation wave" in out.stdout
+    kern = _kernel_lines(tmp_path / "w")
+    assert kern and all(k["launches_in_round"]["fp_mont_mul"] > 0 for k in kern.values())

@@ -1,8 +1,10 @@
 """The port stands alone: no JAX, nothing of handel_tpu, no silent CPU.
 
 * Every module of handel_tpu_torch, chip_smoke.py and kernel_times.py
-  imports in a fresh interpreter where `jax` cannot be imported and a
-  finder refuses every `handel_tpu` module (but not `handel_tpu_torch`).
+  imports in a fresh interpreter where `jax`, `cryptography` and
+  `matplotlib` cannot be imported (the card's machine has neither of the
+  last two) and a finder refuses every `handel_tpu` module (but not
+  `handel_tpu_torch`).
   tests/conftest.py imports jax into every test process, so this runs in a
   subprocess.
 * A static scan of the same files finds no import of either.
@@ -25,6 +27,9 @@ BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 sys.modules["jax"] = None  # `import jax` now raises ImportError
+# the card's machine has neither: no module may need them at import
+sys.modules["cryptography"] = None
+sys.modules["matplotlib"] = None
 
 
 class RefuseReference(importlib.abc.MetaPathFinder):
@@ -46,7 +51,8 @@ import chip_smoke  # noqa: F401
 import kernel_times  # noqa: F401
 leaked = sorted(
     m for m, mod in sys.modules.items()
-    if mod is not None and (m == "jax" or m.startswith(("jax.", "handel_tpu.")))
+    if mod is not None and (m in ("jax", "cryptography", "matplotlib")
+                            or m.startswith(("jax.", "handel_tpu.")))
 )
 assert not leaked, leaked
 print(len(names))

@@ -496,9 +496,7 @@ def unported(edit):
 UNPORTED = {
     "baseline": (lambda c: setattr(c, "baseline", "gossipsub"), "9"),
     "churner": (lambda c: setattr(c.runs[0].adversaries, "churner", 1), "8"),
-    "geo": (lambda c: setattr(c.scenario, "planet", "planet-3region"), "4"),
     "weights": (lambda c: setattr(c.scenario, "weight_profile", "linear"), "8"),
-    "quic": (lambda c: setattr(c, "network", "quic"), "4"),
     "mesh_devices": (lambda c: setattr(c, "mesh_devices", 4), "7"),
 }
 
@@ -536,16 +534,11 @@ def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_
 
 @pytest.mark.parametrize(
     "method, item",
-    [("evaluator_eval1", "8"), ("evaluator_fifo", "8"), ("sleep", "8"),
-     ("geo_config", "4"), ("make_weights", "8")],
+    [("sleep", "8"), ("make_weights", "8")],
 )
 def test_unported_config_methods_name_their_roadmap_item(method, item):
-    if method.startswith("evaluator"):
-        call = lambda: pconfig.HandelParams(evaluator=method.split("_")[1]).to_config(3, 1)  # noqa: E731
-    elif method == "sleep":
+    if method == "sleep":
         call = lambda: pconfig.HandelParams(unsafe_sleep_verify_ms=5).to_config(3, 1)  # noqa: E731
-    elif method == "geo_config":
-        call = lambda: pconfig.ScenarioParams(planet="planet-3region").geo_config()  # noqa: E731
     else:
         call = lambda: pconfig.ScenarioParams(weight_profile="linear").make_weights(8)  # noqa: E731
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
@@ -555,7 +548,7 @@ def test_unported_config_methods_name_their_roadmap_item(method, item):
 
 
 @pytest.mark.parametrize(
-    "sub", ["watch", "serve", "swarm", "soak", "load", "scenario", "confgen"]
+    "sub", ["serve", "swarm", "soak", "load", "scenario"]
 )
 def test_unported_subcommands_exit_non_zero_naming_their_item(sub, monkeypatch, capsys):
     from handel_tpu_torch.sim.__main__ import main
@@ -563,16 +556,6 @@ def test_unported_subcommands_exit_non_zero_naming_their_item(sub, monkeypatch, 
     monkeypatch.setattr(sys, "argv", ["sim", sub, "x.toml"])
     assert main() != 0
     assert "ROADMAP item" in capsys.readouterr().err
-
-
-def test_remote_platform_is_not_ported(tmp_path):
-    from handel_tpu_torch.sim.platform import new_platform
-
-    cfg = pconfig.SimConfig(runs=[pconfig.RunConfig()])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        new_platform("remote", cfg, str(tmp_path))
-    with pytest.raises(ValueError, match="unknown platform"):
-        new_platform("aws", cfg, str(tmp_path))
 
 
 # -- localhost runs --------------------------------------------------------
@@ -695,12 +678,13 @@ def test_device_scheme_without_a_card_fails_without_falling_back(tmp_path, monke
 
 
 def test_a_failing_node_process_fails_the_run_at_once(tmp_path):
-    """A node that exits non-zero (here: an evaluator the port has not
-    ported) ends the run without waiting out max_timeout_s."""
+    """A node that exits non-zero (here: the simulated verify sleep, which
+    the port has not ported) ends the run without waiting out
+    max_timeout_s."""
     cfg = pconfig.SimConfig(
         scheme="fake", max_timeout_s=60.0,
         runs=[pconfig.RunConfig(nodes=4, processes=2,
-                                handel=pconfig.HandelParams(evaluator="fifo"))],
+                                handel=pconfig.HandelParams(unsafe_sleep_verify_ms=5))],
     )
     t0 = time.perf_counter()
     res = run_platform(PPlatform, cfg, tmp_path)
@@ -774,6 +758,78 @@ def test_adversarial_traced_metrics_run_beside_reference(tmp_path, scheme, nodes
     assert report["files"] == 2 and report["critical_path"] is not None
     ports = json.loads((tmp_path / "port" / "metrics_ports.json").read_text())
     assert sorted(ports["addresses"]) == ["0", "1"]
+
+
+class ScriptedLoss:
+    """A node's transport that loses the first packet it sends to each
+    (destination, level) in `lost`, as chaos did in the stalled run."""
+
+    def __init__(self, inner, lost):
+        self.inner, self.lost = inner, set(lost)
+
+    def send(self, idents, packet):
+        keep = [i for i in idents if (i.id, packet.level) not in self.lost]
+        self.lost -= {(i.id, packet.level) for i in idents}
+        if keep:
+            self.inner.send(keep, packet)
+
+    def register_listener(self, listener):
+        self.inner.register_listener(listener)
+
+    def values(self):
+        return {}
+
+    def stop(self):
+        pass
+
+
+def test_a_finished_process_serves_the_fleet_until_the_end_barrier():
+    """The stalled run of ROADMAP §C1, scripted on a virtual clock: the
+    adversarial config's 8 nodes (threshold 4, flooder 5, stale replayer 6,
+    invalid signer 7) as two processes, ids 0, 2, 4, 6 and 1, 3, 5, 7,
+    with the two packets the chaos plane lost there: node 2's level-1
+    packet to node 3 and its level-2 packet to node 1. Process A's honest
+    nodes finish first. Node 1 still needs one contribution, which node 4
+    sends when its level 3 starts; a process that stopped its nodes as
+    soon as its own were done (the reference, handel_tpu/sim/node.py:466)
+    leaves node 1 at 3/4 for good. `serve_until_end` keeps them in the
+    protocol until the END barrier, and every honest node finishes."""
+    from handel_tpu_torch.core.config import Config
+    from handel_tpu_torch.core.test_harness import LocalCluster
+    from handel_tpu_torch.sim.node import serve_until_end
+    from test_torch_protocol import run_on_virtual_clock
+
+    def config(i):
+        c = Config()
+        c.update_period, c.level_timeout = 0.1, 0.2  # the config's period and timeout
+        c.rand = __import__("random").Random(i)
+        return c
+
+    async def go():
+        cluster = LocalCluster(8, threshold=4, config_factory=config, adversaries={
+            5: "flooder", 6: "stale_replayer", 7: "invalid_signer"})
+        nodes = {**cluster.handels, **cluster.adversaries}
+        for nid, h in nodes.items():
+            h.net = ScriptedLoss(h.net, [(3, 1), (1, 2)] if nid == 2 else [])
+        arrived, released = [], asyncio.Event()
+
+        async def end_barrier():
+            arrived.append(1)
+            if len(arrived) == 2:
+                released.set()
+            await released.wait()
+
+        async def process(ids):
+            handels = [(nid, nodes[nid], nodes[nid].net) for nid in ids]
+            return await serve_until_end(handels, 4, 30.0, lambda finals: None, end_barrier)
+
+        for h in nodes.values():
+            h.start()
+        return await asyncio.gather(process([0, 2, 4, 6]), process([1, 3, 5, 7]))
+
+    finals_a, finals_b = run_on_virtual_clock(go())
+    assert len(finals_a) == 3 and len(finals_b) == 2  # honest 0, 2, 4 and 1, 3
+    assert all(ms.bitset.cardinality() >= 4 for ms in finals_a + finals_b)
 
 
 class FakeRegistryDevice:

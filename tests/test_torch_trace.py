@@ -166,11 +166,6 @@ def test_trace_subcommand_writes_the_report(traced_dirs, tmp_path):
     assert rep["backend"] == "trace" and rep["critical_path"]["coverage"] >= 0.90
 
 
-def test_trace_plot_raises_naming_its_item(traced_dirs, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 4\b"):
-        trace_cli.main([traced_dirs["port"], "--plot", str(tmp_path / "w.png")])
-
-
 def traced_service(pkg, rec, devices: int):
     """Four sessions' candidates through a service (traced into `rec`) over
     a host plane of the fake scheme; returns the verdicts."""
