@@ -21,7 +21,8 @@ Phases, one line each, any failure exits non-zero with no result line:
               for BN254 (16 limbs) and BLS12-381 (24 limbs): 2^20 seeded
               random columns plus edge columns, and the widths the verify
               path gives it (an Fp12 multiply at 128 lanes; the widest
-              stacked G2 add of the dense class), and at 24 limbs phase
+              stacked G2 add of the dense class; phase 14's widest, the
+              prefix scan's G2 add at 73,728 columns), and at 24 limbs phase
               11's (BLS_B1_WIDTHS: its Fp12 multiply at 64 lanes, its
               widest dense add, 64 and 1,152 columns); kernel and plain
               times, and the device time of each lanes-per-column instance
@@ -108,8 +109,9 @@ Phases, one line each, any failure exits non-zero with no result line:
               verifying on the host oracle, sigVerifyFailed >= 1, device
               combine groups >= 1, fewer launches than nodes, dedup hits
               >= 1, B1 launched and B2, B3a, B3b not.
-     round_rns  the same round on fp_backend="rns": B2 launched, B3a, B3b
-              not, B1's count printed as it comes.
+     round_rns  the same round on fp_backend="rns" at 8 nodes: B2 launched,
+              B3a, B3b not, B1's count printed as it comes. It was 16 nodes
+              until phase 14 came.
               In every phase-8 run no failover, no retry, the breaker
               closed at the end; an exception out of a lane's dispatch or
               fetch or out of device_combine fails the run at once.
@@ -272,8 +274,33 @@ Phases, one line each, any failure exits non-zero with no result line:
               dashboard rendered, the snapshot holds both processes'
               endpoints; the line gives the metric families, and each
               process launched B1.
+ 14. lifecycle  a live validator-set rotation under load, on phase 4's cios
+              engine (4096 keys, bank A, 128 lanes) wired as the serve
+              driver wires a device (MultiSessionCluster(device=engine): one
+              BatchVerifierService with no fallback, its SessionManager, its
+              AlertPlane with the breaker-storm and queue-depth detectors),
+              an EpochManager, and a LifecycleController ticking the alert
+              plane every 0.25 s. Four sessions of 32
+              range candidates at a time, with phase 4's forged lanes: one
+              launch under A (epoch 0); a second batch under A in flight
+              while `begin_rotation` stages bank B (4096 keys from another
+              seed: the flip is an equal-size pointer swap) on the engine's
+              registry stream, then `commit_rotation`; one launch under B
+              (epoch 1), in which one epoch-0 candidate comes again with the
+              same session, message and bytes and must be no dedup hit and
+              verify False; `rotate(A[:2048])`, a size change that re-makes
+              the staging buffers, and one launch of candidates in [0, 2048)
+              (epoch 2). Every future resolves and every verdict is exact
+              for its bank; service, engine and session manager at epoch 2;
+              B1 launched inside each staging (counted on the staging's own
+              thread) and never inside `activate_staged`; no failover,
+              retry, admission refusal or open breaker; no incident opened;
+              the controller ticked. The line gives each staging's ms and B1
+              calls by width, the swap stalls, the launches per epoch and
+              those that overlapped a staging, and the second bank's bytes
+              and allocation delta.
 
-Each path of phases 4, 6, 7, 8, 10, 11 and 12's RPC and ban cases is one
+Each path of phases 4, 6, 7, 8, 10, 11, 12's RPC and ban cases and 14 is one
 main-path run: every kernel's launch count is set to 0 just before it and
 read just after; phases 9's, 12's and 13's sim counts are the node
 processes' own, which start at 0. Then one JSON line of kernel figures, the seconds
@@ -316,6 +343,8 @@ ROUND_TIMEOUT_S = 600.0
 # committee of the round through one service
 SERVICE_SESSIONS = 4
 SERVICE_ROUND_NODES = 16
+# ... and on the rns backend, cut from 16 to pay for phase 14
+SERVICE_ROUND_NODES_RNS = 8
 # phase 10: the mixed-message service launch's sessions, each on its own
 # message, LANES / RLC_SESSIONS range candidates each
 RLC_SESSIONS = 4
@@ -385,6 +414,12 @@ RPC_CANDIDATES = LANES // RPC_CLIENTS
 BAN_LEVEL = 5
 BAN_FORGED = 12
 BAN_LIMIT_S = 120.0
+# phase 14: sessions of range candidates at once, filling one launch; the
+# controller's tick; the seed of bank B's keys
+LIFECYCLE_SESSIONS = 4
+LIFECYCLE_CANDIDATES = LANES // LIFECYCLE_SESSIONS
+LIFECYCLE_TICK_S = 0.25
+LIFECYCLE_SEED = SEED + 14
 # a secret key outside the round's registry (its keys come from
 # new_keypair(seed=i), SHA-256 derived): the forger of phase 7
 FORGER_SCALAR = 0x5EED_F0E6
@@ -1347,9 +1382,8 @@ def service_load_phase(cons, pks, sks, counters, prng) -> dict:
 
 
 def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launch: str,
-                        expect_idle) -> dict:
-    """Phase 8b: a Handel round of SERVICE_ROUND_NODES nodes through the
-    port's harness, every node verifying through one service over the
+                        expect_idle, nodes: int = SERVICE_ROUND_NODES) -> dict:
+    """Phase 8b: a Handel round of `nodes` nodes through the port's harness, every node verifying through one service over the
     constructor's prepared engine, as one main-path run. Raises on any failed check;
     returns the round's figures."""
     import asyncio
@@ -1396,7 +1430,7 @@ def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launc
     # set before the cluster exists: each node's CombineShim binds
     # `device_combine` when its Handel is built
     cons.device_combine = combine_recorded(cons.device_combine)
-    cluster = LocalCluster(SERVICE_ROUND_NODES, scheme=scheme, msg=MSG, config_factory=factory)
+    cluster = LocalCluster(nodes, scheme=scheme, msg=MSG, config_factory=factory)
     keygen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     engine = cons.prepare(cluster.registry.public_keys())  # warmup, then a device synchronize
@@ -1450,7 +1484,7 @@ def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launc
     values = svc.values()
 
     t0 = time.perf_counter()
-    if sorted(results) != list(range(SERVICE_ROUND_NODES)):
+    if sorted(results) != list(range(nodes)):
         raise AssertionError(f"{label}: final signatures from {len(results)} nodes only")
     verified: dict[bytes, bool] = {}
     for i, sig in results.items():
@@ -1469,7 +1503,7 @@ def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launc
     for h in cluster.handels.values():
         hist.merge(h.proc.hist_verify)
     fig = {
-        "backend": fp_backend, "nodes": SERVICE_ROUND_NODES, "lanes": LANES,
+        "backend": fp_backend, "nodes": nodes, "lanes": LANES,
         "threshold": cluster.threshold,
         "wall_s": wall_s, "keygen_s": keygen_s, "prepare_s": prepare_s,
         "host_check_s": host_check_s, "distinct_finals": len(verified),
@@ -1495,9 +1529,9 @@ def service_round_phase(dev, counters, fp_backend: str, label: str, expect_launc
             f"{label}: the forged candidate was never rejected by a device verdict")
     if fig["combine_device_groups"] < 1:
         raise AssertionError(f"{label}: no merge of the round reached the device combine")
-    if not 0 < values["verifierLaunches"] < SERVICE_ROUND_NODES:
+    if not 0 < values["verifierLaunches"] < nodes:
         raise AssertionError(
-            f"{label}: {values['verifierLaunches']} launches for {SERVICE_ROUND_NODES} nodes")
+            f"{label}: {values['verifierLaunches']} launches for {nodes} nodes")
     if values["dedupHits"] < 1:
         raise AssertionError(f"{label}: the service deduplicated nothing")
     service_checks(label, values)
@@ -2148,6 +2182,194 @@ def ban_case(cons, pks, sks, counters) -> dict:
     return fig
 
 
+def lifecycle_phase(cons, pks, sks, counters) -> dict:
+    """Phase 14, one main-path run: a live validator-set rotation on phase
+    4's cios engine under four sessions' load (module docstring). Raises on
+    any failed check; returns the figures."""
+    import asyncio
+
+    import torch
+
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.lifecycle import EpochManager, LifecycleController
+    from handel_tpu_torch.service.driver import MultiSessionCluster
+    from handel_tpu_torch.sim.config import AlertParams
+
+    engine = cons._device
+    dev = engine.device
+    t0 = time.perf_counter()
+    rng = random.Random(LIFECYCLE_SEED)
+    sks_b, pks_b = make_registry(N_REGISTRY, rng, cons.Device)
+    keygen_s = time.perf_counter() - t0
+    half = N_REGISTRY // 2
+    sks_c, pks_c = sks[:half], pks[:half]
+
+    def batches(keys):
+        return [make_requests("range", keys, LIFECYCLE_CANDIDATES, rng, cons.Device)
+                for _ in range(LIFECYCLE_SESSIONS)]
+
+    loads = {"epoch0": batches(sks), "staging": batches(sks), "epoch1": batches(sks_b),
+             "epoch2": batches(sks_c)}
+    # the epoch-0 candidate sent again under B: session s0's honest lane 0
+    again = loads["epoch0"][0][0][0]
+    loads["epoch1"][0][0][0] = again
+    loads["epoch1"][0][1][0] = False
+
+    # the rotation's two engine calls, each counted on its own thread
+    stagings, flips = [], []
+    stage_registry, activate_staged = engine.stage_registry, engine.activate_staged
+
+    def stage(pubkeys, build_prefix=True):
+        a0 = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        with mont_mul.tally() as widths:
+            n = stage_registry(pubkeys, build_prefix)
+        stagings.append({
+            "keys": n, "ms": (time.perf_counter() - t) * 1e3, "span": (t, time.perf_counter()),
+            "b1_calls": sum(widths.values()),
+            "b1_widths": {str(c): k for c, k in sorted(widths.items())},
+            "bank_bytes": sum(x.nbytes for x in engine._staged.tensors()),
+            "allocated_delta": torch.cuda.memory_allocated(dev) - a0,
+        })
+        return n
+
+    def flip():
+        t = time.perf_counter()
+        with mont_mul.tally() as widths:
+            epoch = activate_staged()
+        flips.append({"epoch": epoch, "ms": (time.perf_counter() - t) * 1e3,
+                      "b1_calls": sum(widths.values())})
+        return epoch
+
+    engine.stage_registry, engine.activate_staged = stage, flip
+    calls = LaneCalls(engine)
+    # the serve driver's wiring over the engine: one service with no
+    # fallback, its session manager, and the [alerts] plane with the
+    # breaker-storm and queue-depth detectors; its sessions are the four
+    # tenants below, not Handel committees, so `run` is never called
+    cluster = MultiSessionCluster(LIFECYCLE_SESSIONS, 0, device=engine, alert_p=AlertParams())
+    svc, manager, alerts = cluster.service, cluster.manager, cluster.alerts
+    epochs = EpochManager(svc, manager)
+    controller = LifecycleController(svc, epoch_manager=epochs, alert_plane=alerts,
+                                     interval_s=LIFECYCLE_TICK_S)
+    engine.reset_host_counters()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated0 = torch.cuda.memory_allocated(dev)
+    marks: dict[str, dict] = {}
+
+    def mark(name):
+        v = svc.values()
+        marks[name] = {"t": time.perf_counter(), "launches": v["verifierLaunches"],
+                       "dedup_hits": sum(svc.tenant_dedup_hits.values())}
+
+    keys = {"epoch0": pks, "staging": pks, "epoch1": pks_b, "epoch2": pks_c}
+
+    def send(name):
+        return asyncio.gather(*(
+            svc.verify(MSG, keys[name], reqs, session=f"s{i}")
+            for i, (reqs, _) in enumerate(loads[name])
+        ))
+
+    async def go():
+        calls.loop = asyncio.get_running_loop()
+        controller.start()
+        try:
+            got = {}
+            mark("start")
+            got["epoch0"] = await send("epoch0")
+            mark("epoch0")
+            in_flight = asyncio.ensure_future(send("staging"))
+            # stage once the batch's launch is under way (collected, in its
+            # dispatch, or in flight)
+            while svc._plane_idle() and not in_flight.done():
+                await asyncio.sleep(0.001)
+            await epochs.begin_rotation(pks_b)
+            got["staging"] = await in_flight
+            await epochs.commit_rotation()
+            mark("staging")
+            got["epoch1"] = await send("epoch1")
+            mark("epoch1")
+            await epochs.rotate(pks_c)
+            got["epoch2"] = await send("epoch2")
+            mark("epoch2")
+            return got
+        finally:
+            await controller.stop()
+            cluster.stop()
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        got = asyncio.run(go())
+    finally:
+        calls.restore()
+        del engine.stage_registry, engine.activate_staged
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    launches = {k: c.launches for k, c in counters.items()}
+    values, ev = svc.values(), epochs.values()
+    names = ["epoch0", "staging", "epoch1", "epoch2"]
+    per_epoch = {n: marks[n]["launches"] - marks[p]["launches"]
+                 for p, n in zip(["start"] + names, names)}
+    # a launch runs from its dispatch's start to its fetch's end
+    spans = [(d[0], f[1]) for d, f in zip(sorted(calls.spans["dispatch"]),
+                                          sorted(calls.spans["fetch"]))]
+    overlapped = [sum(1 for a, b in spans if a < st["span"][1] and b > st["span"][0])
+                  for st in stagings]
+    fig = {
+        "registry": N_REGISTRY, "sessions": LIFECYCLE_SESSIONS,
+        "candidates_per_session": LIFECYCLE_CANDIDATES, "lanes": LANES,
+        "keygen_s": keygen_s, "wall_s": wall_s,
+        "staging": [{k: v for k, v in st.items() if k != "span"} for st in stagings],
+        "flips": flips, "swap_stall_ms": epochs.stall_ms,
+        "max_epoch_swap_stall_ms": ev["maxEpochSwapStallMs"],
+        "launches_per_epoch": per_epoch, "launches_overlapping_staging": overlapped,
+        "dedup_hits_in_epoch1": marks["epoch1"]["dedup_hits"] - marks["staging"]["dedup_hits"],
+        "epoch": {"service": svc.epoch, "engine": engine.epoch, "manager": manager.epoch},
+        "controller_ticks": controller.ticks,
+        "incidents_opened": alerts.incidents.opened,
+        "incident_rules": [sorted(i.rules) for i in alerts.incidents.incidents],
+        "max_memory_allocated_delta": torch.cuda.max_memory_allocated(dev) - allocated0,
+        "kernel_launches": launches, "widths": width_histograms(counters),
+        "host_pack_ms_per_launch": values["hostPackMsPerLaunch"],
+        "host_dispatch_ms_per_launch": values["hostDispatchMsPerLaunch"],
+    }
+    line("lifecycle", **fig)
+    for name in names:
+        for i, (verdicts, (_reqs, expect)) in enumerate(zip(got[name], loads[name])):
+            if verdicts != expect:
+                bad = [j for j, (g, e) in enumerate(zip(verdicts, expect)) if g != e]
+                raise AssertionError(f"lifecycle {name}: session s{i} verdicts wrong at {bad}")
+    if fig["epoch"] != {"service": 2, "engine": 2, "manager": 2}:
+        raise AssertionError(f"lifecycle: epochs {fig['epoch']}, not 2")
+    if engine.n != half or engine.bank.n != half:
+        raise AssertionError(f"lifecycle: the engine serves {engine.n} keys, not {half}")
+    if len(stagings) != 2 or not all(st["b1_calls"] > 0 for st in stagings):
+        raise AssertionError(f"lifecycle: B1 not launched inside each staging: {stagings}")
+    if len(flips) != 2 or any(f["b1_calls"] for f in flips):
+        raise AssertionError(f"lifecycle: B1 launched inside activate_staged: {flips}")
+    if overlapped[0] < 1:
+        raise AssertionError("lifecycle: no launch was in flight during the first staging")
+    if fig["dedup_hits_in_epoch1"] != 0:
+        raise AssertionError("lifecycle: the epoch-0 candidate was a dedup hit in epoch 1")
+    if any(n < 1 for n in per_epoch.values()):
+        raise AssertionError(f"lifecycle: an epoch ran no launch: {per_epoch}")
+    service_checks("lifecycle", values)
+    for key in ("admissionRefused", "admissionShed"):
+        if values[key] != 0:
+            raise AssertionError(f"lifecycle: {key} = {values[key]}")
+    if fig["incidents_opened"] or controller.ticks < 1:
+        raise AssertionError(f"lifecycle: {fig['incidents_opened']} incidents, "
+                             f"{controller.ticks} controller ticks")
+    if launches["fp_mont_mul"] == 0:
+        raise AssertionError("lifecycle: B1 never launched")
+    for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
+        if launches[k] != 0:
+            raise AssertionError(f"lifecycle: {k} launched {launches[k]} times")
+    return fig
+
+
 def kill_nodes_under(path: str) -> None:
     """SIGKILL every node process whose command line names `path`: the
     remote platform starts each host's node processes in sessions of their
@@ -2753,8 +2975,12 @@ def main() -> int:
     R65 = Field(BLS12_381_P, backend="rns", device=dev)
     ragged_phase((F16, F24), (R46, R65), rng)
     done("ragged")
+    # phase 14's staging: the prefix scan's widest stacked multiply (18n
+    # columns, a G2 add's 6 Fp2 products of 3 base products each)
+    scan_width = 18 * N_REGISTRY
     k16 = kernel_phase(
-        F16, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width, "g2_add_dense": widest},
+        F16, {"random+edges": (1 << 20) + 16, "f12_mul": f12_width, "g2_add_dense": widest,
+              "g2_add_scan": scan_width},
         rng, with_edges=True,
     )
     k24 = kernel_phase(F24, {"random+edges": (1 << 20) + 16, **BLS_B1_WIDTHS}, rng,
@@ -2814,7 +3040,8 @@ def main() -> int:
                                ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"))
     done("service_round")
     srnd_rns = service_round_phase(dev, counters, "rns", "round_rns", "rns_mont_mul_resident",
-                                   ("lab_cios_fullwidth", "lab_separated"))
+                                   ("lab_cios_fullwidth", "lab_separated"),
+                                   nodes=SERVICE_ROUND_NODES_RNS)
     done("service_round_rns")
     torch.cuda.empty_cache()  # phase 9's node processes share the card
     sim = sim_phase()
@@ -2835,6 +3062,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # phase 13's node processes share the card
     fleet = fleet_phase()
     done("fleet")
+    life = lifecycle_phase(cons, pks, sks, counters)
+    done("lifecycle")
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
@@ -2902,7 +3131,11 @@ def main() -> int:
                   "launches_in_round": fleet["remote"]["b1_launches_in_round"],
                   "widths": fleet["remote"]["b1_widths"]},
                   "chipless_hosts": fleet["remote"]["chipless_b1_launches"],
-                  "watch_launches_in_round": fleet["watch"]["b1_launches_in_round"]}),
+                  "watch_launches_in_round": fleet["watch"]["b1_launches_in_round"]},
+              on_lifecycle={"launches": life["kernel_launches"]["fp_mont_mul"],
+                            "in_staging": [st["b1_calls"] for st in life["staging"]],
+                            "staging_widths": [st["b1_widths"] for st in life["staging"]],
+                            "in_flip": [f["b1_calls"] for f in life["flips"]]}),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],

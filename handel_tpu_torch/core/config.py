@@ -9,16 +9,16 @@ DefaultUpdateCount=1, config.go:87-97), merge-with-default (:128-165), and
 
 Beyond the reference: `batch_size` (max signatures per device verify
 launch), `verifier` (an async batch verifier in place of the scheme's own
-`batch_verify`), and the peer-penalty and flood bounds. Fields of the JAX
-package's Config that serve planes the port has not ported yet
-(sessions, epochs, stake weights, the windowed store and the simulated
-verify sleep) are not here, nor are its factory hooks that no caller of
-the port sets (bitset, partitioner and scorer factories, and the
-peer-penalty switch): a node always builds `BitSet`,
-`BinomialPartitioner` and a `PeerScorer`. The evaluator and processing
-factories (the sim's `evaluator = "eval1"` / `"fifo"`) and the geo
-plane's `region` tag are here. Every field here has the JAX package's
-default.
+`batch_verify`), the peer-penalty and flood bounds, and the service's
+`session` and `epoch` with its `new_scorer` (service/session.py).
+Fields of the JAX package's Config that serve planes the port has not
+ported yet (stake weights, the windowed store and the simulated verify
+sleep) are not here, nor are its factory hooks that no caller of the port
+sets (bitset and partitioner factories, and the peer-penalty switch): a
+node always builds `BitSet` and `BinomialPartitioner`. The evaluator and
+processing factories (the sim's `evaluator = "eval1"` / `"fifo"`) and
+the geo plane's `region` tag are here. Every field here has the JAX
+package's default.
 """
 
 from __future__ import annotations
@@ -75,6 +75,10 @@ class Config:
     disable_shuffling: bool = False
 
     # -- byzantine hardening ----------------------------------------------
+    # (handel, ) -> PeerScorer; None builds a PeerScorer with the default
+    # thresholds (core/penalty.py). The service's sessions share one
+    # scorer per session (SessionScorers)
+    new_scorer: Optional[Callable] = None
     # cap on queued unverified candidates per node; beyond it the OLDEST
     # pending candidate is dropped, so a flooder bounds host memory instead
     # of growing it (core/processing.py)
@@ -86,6 +90,19 @@ class Config:
     # per contribution). Shared across co-located nodes — each node records
     # under its own id as the Chrome-trace tid.
     recorder: Optional[object] = None
+
+    # -- multi-tenant service (service/) -----------------------------------
+    # aggregation-session id this node belongs to ("" = the single-tenant
+    # default). Scopes the per-instance state — dedup verdict keys, the
+    # shared verifier's fairness/admission queues, penalty attribution —
+    # so concurrent sessions sharing one process and one device plane
+    # never bleed state into each other.
+    session: str = ""
+    # validator-set epoch this node was spawned under (lifecycle/epoch.py
+    # EpochManager). The epoch joins every dedup key and trace span, so a
+    # verdict computed against epoch E's registry is never replayed for
+    # epoch E+1's. 0 = the single-epoch default (key shapes unchanged).
+    epoch: int = 0
 
     # -- WAN scenario plane (network/geo.py) ------------------------------
     # region label this node aggregates from (GeoNetwork planet model). Tags

@@ -13,8 +13,8 @@ in-process. Verified signatures flow back via a direct callback
 (`_on_verified`) instead of a channel.
 
 Cut from the JAX package's Handel, with the planes they serve (ROADMAP):
-stake-weighted thresholds, departures of members mid-round, sessions and
-epochs, the windowed store and the external timer wheel.
+stake-weighted thresholds, departures of members mid-round, the windowed
+store and the external timer wheel.
 """
 
 from __future__ import annotations
@@ -192,8 +192,9 @@ class Handel:
         self.log = self.c.logger.with_fields(id=identity.id)
 
         # byzantine peer accounting (core/penalty.py): failed verifications
-        # and unparseable packets are attributed back to the packet origin
-        self.scorer = PeerScorer()
+        # and unparseable packets are attributed back to the packet origin;
+        # the service's sessions pass their session's scorer (new_scorer)
+        self.scorer = self.c.new_scorer(self) if self.c.new_scorer else PeerScorer()
 
         self.partitioner = BinomialPartitioner(identity.id, registry, self.log)
         self.levels = create_levels(self.c, self.partitioner, self.scorer)
@@ -215,10 +216,16 @@ class Handel:
         # without coordination; generated only while tracing, so untraced
         # packets stay span_id=0 (no trailer on the wire)
         self._span_seq = 0
-        # WAN region tag (network/geo.py): rides every span this node emits
-        # so the critical-path analyzer can attribute hops to region pairs
-        # (sender's send span vs receiver's recv span)
-        self._sargs = {"region": self.c.region} if self.c.region else {}
+        # session/epoch tags folded into span args end to end (multi-tenant
+        # runs; the epoch marks which validator set served this node)
+        self._sargs = {"session": self.c.session} if self.c.session else {}
+        if self.c.epoch:
+            self._sargs = {**self._sargs, "epoch": self.c.epoch}
+        if self.c.region:
+            # WAN region tag (network/geo.py): rides every span this node
+            # emits so the critical-path analyzer can attribute hops to
+            # region pairs (sender's send span vs receiver's recv span)
+            self._sargs = {**self._sargs, "region": self.c.region}
 
         # batched aggregate combine: device constructors expose
         # `device_combine`, and the shim routes the store's merge/patch
@@ -267,6 +274,8 @@ class Handel:
             logger=self.log,
             recorder=self.rec,
             trace_tid=self._tid,
+            session=self.c.session,
+            epoch=self.c.epoch,
         )
         self.net.register_listener(self)
         self.timeout = (

@@ -1,5 +1,6 @@
-"""Per-peer penalty scoring: demote and ban misbehaving origins — the
-`PeerScorer` of handel_tpu/core/penalty.py.
+"""Per-peer penalty scoring: demote and ban misbehaving origins — a copy of
+handel_tpu/core/penalty.py (`PeerScorer`, and `SessionScorers` for the
+service's sessions).
 
 The reference has no peer accounting at all — a byzantine peer can feed
 invalid signatures forever and every one costs the receiver a pairing check
@@ -110,3 +111,73 @@ class PeerScorer:
     def gauge_keys(self) -> set[str]:
         """The ban-set size is a level, not an event count."""
         return {"peersBanned"}
+
+
+class SessionScorers:
+    """Per-tenant penalty state for the multi-tenant service.
+
+    One aggregation session is one trust domain: a peer that misbehaves in
+    session A earned its penalty against A's committee, not against every
+    committee this process will ever host — and a retired session's scores
+    must not linger as host memory or stale bans. This registry keys one
+    `PeerScorer` per session id; `drop` (the SessionManager evict hook)
+    removes a tenant's whole penalty footprint in one call, and the
+    registry itself is bounded: past `capacity` live scorers the
+    least-recently-touched one is evicted, so session-id churn cannot turn
+    the penalty layer into a memory attack (the same argument as
+    PeerScorer's own ban_capacity).
+
+    Single-threaded like PeerScorer (module docstring): no lock.
+    """
+
+    def __init__(
+        self,
+        factory: Callable[[], PeerScorer] = PeerScorer,
+        capacity: int = 256,
+    ):
+        if capacity < 1:
+            raise ValueError("scorer capacity must be >= 1")
+        self.factory = factory
+        self.capacity = capacity
+        self._scorers: dict[str, PeerScorer] = {}  # insertion = recency
+        self.evicted = 0
+
+    def for_session(self, session: str) -> PeerScorer:
+        """The session's scorer, created on first use (LRU-touched)."""
+        sc = self._scorers.pop(session, None)
+        if sc is None:
+            sc = self.factory()
+            while len(self._scorers) >= self.capacity:
+                self._scorers.pop(next(iter(self._scorers)))
+                self.evicted += 1
+        self._scorers[session] = sc  # re-insert = most recent
+        return sc
+
+    def drop(self, session: str) -> bool:
+        """Forget one tenant's penalties entirely (session evict)."""
+        return self._scorers.pop(session, None) is not None
+
+    def __len__(self) -> int:
+        return len(self._scorers)
+
+    def values(self) -> dict[str, float]:
+        """Aggregate reporter surface (per-session detail rides the
+        `session`-labeled plane via labeled_values)."""
+        return {
+            "penaltySessions": float(len(self._scorers)),
+            "penaltySessionsEvicted": float(self.evicted),
+            "peerPenaltyReports": float(
+                sum(s.reports for s in self._scorers.values())
+            ),
+            "peersBanned": float(
+                sum(len(s._banned) for s in self._scorers.values())
+            ),
+        }
+
+    def labeled_values(self) -> dict[str, dict[str, float]]:
+        """{session id: scorer values} for the session-labeled metrics
+        plane (core/metrics.py register_labeled_values)."""
+        return {sid: s.values() for sid, s in self._scorers.items()}
+
+    def gauge_keys(self) -> set[str]:
+        return {"penaltySessions", "peersBanned"}

@@ -220,6 +220,8 @@ class BatchProcessing:
         logger: Logger = DEFAULT_LOGGER,
         recorder=None,
         trace_tid: int = 0,
+        session: str = "",
+        epoch: int = 0,
     ):
         self.part = part
         self.cons = constructor
@@ -241,6 +243,22 @@ class BatchProcessing:
         # aggregate from several peers per level; each copy this node has
         # already judged short-circuits here instead of burning a device lane
         self.dedup = dedup_cache or VerifiedAggCache()
+        # multi-tenant scope (service/): a non-empty session id prefixes
+        # every dedup key below, so a cache shared across sessions can
+        # never hand one tenant another tenant's verdict. "" keeps the
+        # single-tenant key shape byte for byte.
+        self.session = session
+        # validator-set epoch (lifecycle/epoch.py): a nonzero epoch joins
+        # the dedup scope so verdicts never survive a registry rotation —
+        # the same bytes against a rotated validator set is a new fact.
+        self.epoch = epoch
+        # tenant/epoch tags folded into every queue/verify span (built once;
+        # the tracing hot path only splats the dict)
+        self._span_tags: dict = {}
+        if session:
+            self._span_tags["session"] = session
+        if epoch:
+            self._span_tags["epoch"] = epoch
 
         # priority queue of (-score, seq, sig): scored once at enqueue, lazily
         # re-scored at dequeue (see _select_batch). `_live` maps seq -> sig
@@ -327,6 +345,10 @@ class BatchProcessing:
 
     def _queue_len(self) -> int:
         return len(self._live)
+
+    def pending(self) -> list[IncomingSig]:
+        """Snapshot of queued candidates (service/session.py pending work)."""
+        return list(self._live.values())
 
     # -- processing loop ---------------------------------------------------
 
@@ -424,6 +446,7 @@ class BatchProcessing:
                             "ind": sp.is_ind,
                             "tries": sp.verify_tries,
                             "span": sp.span_id,
+                            **self._span_tags,
                         },
                     )
         # Dedup pass: a candidate whose exact content — (level, bitset words,
@@ -435,7 +458,17 @@ class BatchProcessing:
         first_at: dict[tuple, int] = {}
         to_verify: list[int] = []
         for i, sp in enumerate(batch):
-            k = VerifiedAggCache.key(sp.level, sp.ms)
+            # scope: level alone (single-tenant default, key shape
+            # unchanged), else (session, level) or — after a rotation —
+            # (session, epoch, level), so an epoch bump invalidates every
+            # verdict computed against the previous validator set
+            if self.epoch:
+                scope = (self.session, self.epoch, sp.level)
+            elif self.session:
+                scope = (self.session, sp.level)
+            else:
+                scope = sp.level
+            k = VerifiedAggCache.key(scope, sp.ms)
             keys.append(k)
             if k in first_at:
                 self.dedup.hits += 1  # in-batch duplicate: zero extra lanes
@@ -504,6 +537,7 @@ class BatchProcessing:
                         "ok": bool(ok) if ok is not None else None,
                         "batch": len(batch),
                         "span": sp.span_id,
+                        **self._span_tags,
                     },
                 )
                 if sp.span_id:
@@ -619,6 +653,9 @@ class FifoProcessing(BatchProcessing):
 
     def _queue_len(self) -> int:
         return len(self._todos)
+
+    def pending(self) -> list[IncomingSig]:
+        return list(self._todos)
 
     def _select_batch(self) -> list[IncomingSig]:
         # drop ms-less entries up front so they neither consume batch slots

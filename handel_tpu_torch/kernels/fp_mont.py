@@ -6,7 +6,11 @@ launch was refused. `mont_mul.launches` counts launches, and only launches:
 a run can read it to show that its path went through the kernel;
 `mont_mul.widths` counts the launches by column count and `mont_mul.rows`
 by limb count (16 for BN254, 24 for BLS12-381), and `reset()` zeroes all
-three. The library is built and loaded at the first launch, never at import.
+three. `with mont_mul.tally() as widths:` counts, by width, only the
+launches that the calling thread makes inside the block, so a window on
+one thread reads exactly its own launches while other threads launch too
+(a registry staging beside a service's dispatches). The library is built
+and loaded at the first launch, never at import.
 
 Lanes per column: the kernel shares each column among TPI = 2 or 4 lanes
 of a warp for narrow calls, and runs one lane a column for wide ones
@@ -19,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from collections import Counter
+from contextlib import contextmanager
 
 import torch
 
@@ -53,6 +58,8 @@ class MontMulKernel:
         self.rows: Counter[int] = Counter()
         self.tpi: int | None = None
         self._fn = None
+        # open `tally()` windows: thread id -> that thread's width counter
+        self._tallies: dict[int, Counter[int]] = {}
         # launches come from several threads (a service's worker thread
         # verifies while the event loop combines): the library load and
         # each count happen under the lock
@@ -70,6 +77,25 @@ class MontMulKernel:
             self.launches += 1
             self.widths[cols] += 1
             self.rows[rows] += 1
+            tally = self._tallies.get(threading.get_ident())
+            if tally is not None:
+                tally[cols] += 1
+
+    @contextmanager
+    def tally(self):
+        """Yield a Counter of this thread's launches by width inside the
+        block. Windows do not nest on one thread."""
+        me = threading.get_ident()
+        widths: Counter[int] = Counter()
+        with self._lock:
+            if me in self._tallies:
+                raise RuntimeError("mont_mul.tally() windows do not nest")
+            self._tallies[me] = widths
+        try:
+            yield widths
+        finally:
+            with self._lock:
+                del self._tallies[me]
 
     def _entry(self):
         with self._lock:

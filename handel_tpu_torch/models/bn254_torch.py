@@ -67,8 +67,21 @@ against 832,667 on cios (1,808,188 and 1,373,520 in all, counted on the CPU
 by `utils/opcount.py`), far from the combine's 37x. `dispatch_multi` takes
 launches whose lanes carry different messages.
 
-Not ported yet (ROADMAP): meshes of several cards, registry epoch staging
-and the host failover breaker.
+Epoch rotation (lifecycle/epoch.py). `stage_registry` builds the next
+validator set's `RegistryBank` — the key pack, its copy to the card and
+the prefix table — while the active bank serves; `activate_staged` flips
+it live between launches. Staging runs in an executor thread beside the
+service's dispatches, so on the card it takes no dispatch lock, issues its
+work on a third stream of its own (B1 launches on the calling thread's
+current stream, which is that stream), and waits for that stream's event
+before it returns: the flip pays no scan. The flip takes the dispatch lock
+for its pointer swaps (the caller has drained every launch by then:
+`BatchVerifierService.quiesce_and`), and marks the new bank's tensors as
+used on the verify stream, so the allocator reuses a released bank's
+memory only after the verify stream is past every read of it.
+
+Not ported yet (ROADMAP): meshes of several cards and the host failover
+breaker.
 """
 
 from __future__ import annotations
@@ -165,6 +178,15 @@ class RegistryBank:
         self.reg_x, self.reg_y = reg_x, reg_y
         self.n = reg_x[0].shape[1]
         self.prefix = prefix
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every device tensor of the bank, prefix table included."""
+        (x0, x1), (y0, y1) = self.reg_x, self.reg_y
+        out = [x0, x1, y0, y1]
+        if self.prefix is not None:
+            (px0, px1), (py0, py1), inf = self.prefix
+            out += [px0, px1, py0, py1, inf]
+        return out
 
 
 def bank_from_numpy(reg_x, reg_y, prefix=None, device=None) -> RegistryBank:
@@ -270,6 +292,8 @@ class BN254Device:
         # one dispatch at a time (module docstring, "Threads")
         self._verify_stream = torch.cuda.Stream(self.device) if pin else None
         self._combine_stream = torch.cuda.Stream(self.device) if pin else None
+        # registry staging's own stream (module docstring, "Epoch rotation")
+        self._registry_stream = torch.cuda.Stream(self.device) if pin else None
         self._dispatch_lock = threading.Lock()
         # (event, trace_now()) recorded together on the idle verify stream:
         # the origin that `device_span` maps launch events from
@@ -285,6 +309,12 @@ class BN254Device:
         self.host_pack_launches = 0
         self.host_dispatch_ms = 0.0
         self.host_dispatch_launches = 0
+        # epoch rotation: `epoch` counts flips (0 is the construction-time
+        # set); `_staged` is the next bank, built while this one serves
+        self.epoch = 0
+        self._staged: RegistryBank | None = None
+        self.registry_stagings = 0
+        self.registry_staged_ms = 0.0
 
     # -- registry bank and prefix table ---------------------------------------
 
@@ -302,6 +332,68 @@ class BN254Device:
         pad = lambda a: nnf.pad(a, (1, 0))  # noqa: E731
         one = torch.ones((1,), dtype=torch.bool, device=inf.device)
         return (pad(x[0]), pad(x[1])), (pad(y[0]), pad(y[1])), torch.cat([one, inf])
+
+    # -- epoch rotation (lifecycle/epoch.py) -------------------------------------
+
+    def stage_registry(
+        self, registry_pubkeys: Sequence[BN254PublicKey], build_prefix: bool = True
+    ) -> int:
+        """Stage the NEXT validator set as a second bank on the device while
+        the active one keeps serving launches. The host pack, the copy to
+        the device and the prefix-table scan all happen here, on the
+        registry stream without the dispatch lock, and are complete when
+        this returns; `activate_staged` is then a pointer flip. Re-staging
+        before activation replaces the pending bank (last staging wins).
+        Returns the staged registry size."""
+        t0 = time.perf_counter()
+        T = self.curves.T
+        pts = [pk.point for pk in registry_pubkeys]
+        if any(p is None for p in pts):
+            raise ValueError("staged registry keys must be valid G2 points")
+        stream = self._registry_stream
+        with torch.cuda.stream(stream):
+            bank = RegistryBank(
+                T.f2_pack([p[0] for p in pts]), T.f2_pack([p[1] for p in pts])
+            )
+            if build_prefix:
+                # built NOW: the flip must never pay the scan
+                bank.prefix = self._build_prefix(bank.reg_x, bank.reg_y)
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+                done.synchronize()
+        self._staged = bank
+        self.registry_stagings += 1
+        self.registry_staged_ms += (time.perf_counter() - t0) * 1e3
+        return bank.n
+
+    def activate_staged(self) -> int:
+        """Flip the staged bank live. The caller drains launches around this
+        (lifecycle/epoch.py EpochManager.commit_rotation). Cheap by
+        construction: pointer swaps, plus new staging buffers when the
+        registry size changed. Returns the new epoch."""
+        bank = self._staged
+        if bank is None:
+            raise RuntimeError("no staged registry: call stage_registry first")
+        with self._dispatch_lock:
+            if self._verify_stream is not None:
+                for t in bank.tensors():
+                    t.record_stream(self._verify_stream)
+            self.bank = bank
+            if bank.n != self.n:
+                self.n = bank.n
+                pin = self.device.type == "cuda"
+                self._stage = [
+                    _StagingSet(
+                        self.n, self.batch_size, self.MISS_CAP,
+                        self.curves.F.nlimbs, pin,
+                    )
+                    for _ in range(self.stage_sets)
+                ]
+                self._stage_idx = 0
+            self._staged = None
+            self.epoch += 1
+        return self.epoch
 
     # -- the launch classes ------------------------------------------------------
 

@@ -8,9 +8,12 @@ Usage: python -m handel_tpu_torch.sim --config sim.toml --workdir out/
        python -m handel_tpu_torch.sim trace <trace-dir>   (analyze a traced run)
        python -m handel_tpu_torch.sim watch sim.toml      (live /metrics dashboard)
        python -m handel_tpu_torch.sim confgen --scenario geo     (emit TOMLs)
+       python -m handel_tpu_torch.sim serve sim.toml      (multi-session service)
 
 The node processes run their device scheme on the card unless
-HANDEL_TORCH_DEVICE=cpu (utils/torchenv.py). The reference's other
+HANDEL_TORCH_DEVICE=cpu (utils/torchenv.py). `serve` runs its sessions on
+the fake or a host scheme and refuses a device scheme, as the reference
+does (service/driver.py run_in_process). The reference's other
 subcommands are not ported yet: each exits non-zero naming its ROADMAP item.
 """
 
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import sys
 
 from handel_tpu_torch.sim.config import load_config
@@ -25,7 +29,6 @@ from handel_tpu_torch.sim.platform import run_simulation
 
 #: subcommand -> ROADMAP item that ports it
 NOT_PORTED = {
-    "serve": "8 (service/driver.py run_service)",
     "swarm": "8 (swarm/)",
     "soak": "8 (sim/soak.py)",
     "load": "8 (sim/load.py)",
@@ -64,6 +67,20 @@ def main() -> int:
         for p in generate(gargs.outdir, gargs.scenario):
             print(p)
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "serve":
+        # multi-tenant service subcommand (service/driver.py): run the
+        # [service] TOML section's K concurrent sessions over M worker
+        # processes, one shared BatchVerifierService per process
+        sap = argparse.ArgumentParser(prog="python -m handel_tpu_torch.sim serve")
+        sap.add_argument("config")
+        sap.add_argument("--workdir", default="serve_out")
+        sargs = sap.parse_args(sys.argv[2:])
+        from handel_tpu_torch.service.driver import run_service
+
+        cfg = load_config(sargs.config)
+        summary = asyncio.run(run_service(cfg, sargs.workdir, sargs.config))
+        print(json.dumps(summary))
+        return 0 if summary["ok"] else 1
     if len(sys.argv) > 1 and sys.argv[1] in NOT_PORTED:
         sub = sys.argv[1]
         print(

@@ -896,3 +896,80 @@ def test_watch_runs_a_card_fleet_without_a_context_of_its_own(card, tmp_path):
     assert "aggregation wave" in out.stdout
     kern = _kernel_lines(tmp_path / "w")
     assert kern and all(k["launches_in_round"]["fp_mont_mul"] > 0 for k in kern.values())
+
+
+def test_registry_staging_runs_beside_an_inflight_launch_on_its_own_stream(card):
+    """The epoch rotation on the card. A verify launch is dispatched from a
+    worker thread behind about 3 s of device work at the head of the verify
+    stream; `stage_registry` on this thread meanwhile builds bank B's prefix
+    table with B1 on the registry stream and returns in well under that
+    time, before the launch's verdicts, which are still bank A's. The flip
+    launches no B1, and the next launch verifies against bank B."""
+    import threading
+    import time
+
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.models.bn254 import BN254PublicKey
+
+    eng, sks, _ = _service_engine(card)
+    reqs, want = _service_candidates(sks)
+    rng = random.Random(99)
+    sks_b = [rng.randrange(1, 1 << 30) for _ in range(16)]
+    pks_b = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks_b]
+    reqs_b, want_b = _service_candidates(sks_b)
+    with torch.cuda.stream(eng._verify_stream):
+        torch.cuda._sleep(int(3 * 1.98e9))  # >= 3 s at the H100's highest clock
+    out = {}
+
+    def verify():
+        handle = eng.dispatch(b"service engine", reqs[:4])
+        out["verdicts"] = eng.fetch(handle)
+        out["fetched"] = time.perf_counter()
+
+    worker = threading.Thread(target=verify)
+    worker.start()
+    t0 = time.perf_counter()
+    with mont_mul.tally() as staged_widths:
+        assert eng.stage_registry(pks_b) == 16
+    staged = time.perf_counter()
+    worker.join()
+    assert staged - t0 < 1.5, f"the staging waited {staged - t0:.2f} s"
+    assert staged < out["fetched"]
+    assert sum(staged_widths.values()) > 0
+    assert out["verdicts"] == want[:4]  # bank A served the launch in flight
+    with mont_mul.tally() as flip_widths:
+        assert eng.activate_staged() == 1
+    assert sum(flip_widths.values()) == 0
+    assert eng._staged is None and eng.epoch == 1
+    assert eng.batch_verify(b"service engine", reqs_b) == want_b
+
+
+def test_size_changing_rotation_on_card_matches_the_cpu_engine(card):
+    """A rotation from 16 keys to 12 on the card and on the CPU: the staged
+    prefix tables are equal limb for limb, and the verdicts after the flip
+    are equal and as known by construction."""
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.models.bn254 import BN254PublicKey, BN254Signature, hash_to_g1
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+
+    eng, _sks, _ = _service_engine(card)
+    rng = random.Random(12)
+    sks_c = [rng.randrange(1, 1 << 30) for _ in range(12)]
+    pks_c = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks_c]
+    cpu = BN254Device(_service_keys()[1], batch_size=4, device="cpu")
+    for e in (eng, cpu):
+        e.stage_registry(pks_c)
+    for a, b in zip(eng._staged.tensors(), cpu._staged.tensors()):
+        assert torch.equal(a.cpu(), b)
+    assert eng.activate_staged() == cpu.activate_staged() == 1
+    assert eng.n == 12 and eng._stage[0].words.shape == (4, 1)
+
+    def cand(idx, forge=False):
+        bs = BitSet(12)
+        for i in idx:
+            bs.set(i, True)
+        k = (sum(sks_c[i] for i in idx) + forge) % bn.R
+        return bs, BN254Signature(bn.g1_mul(hash_to_g1(b"m"), k))
+
+    reqs = [cand(range(0, 7)), cand([2, 3, 5, 8, 11]), cand(range(4, 9), forge=True)]
+    assert eng.batch_verify(b"m", reqs) == cpu.batch_verify(b"m", reqs) == [True, True, False]

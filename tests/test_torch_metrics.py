@@ -54,11 +54,11 @@ REF = SimpleNamespace(m=jmetrics, Hist=JLogHistogram, Breaker=JCircuitBreaker,
                       BitSet=JBitSet, fake=jfake)
 
 
-def get(addr: str, path: str, method: str = "GET"):
+def get(addr: str, path: str, method: str = "GET", timeout: float = 5):
     req = urllib.request.Request(f"http://{addr}{path}", method=method,
                                  data=b"" if method == "POST" else None)
     try:
-        with urllib.request.urlopen(req, timeout=5) as r:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, r.read().decode()
     except urllib.error.HTTPError as e:
         return e.code, e.read().decode()
@@ -318,7 +318,9 @@ def test_profile_endpoint_captures_on_the_cpu(tmp_path):
     reg.register_values("device", tel)
     srv = pmetrics.MetricsServer(reg, port=0, profiler=tel.profile).start()
     try:
-        code, body = get(srv.address, "/debug/profile?seconds=0.1", "POST")
+        # a CPU torch.profiler capture takes seconds, more under parallel
+        # test workers: this request gets its own limit
+        code, body = get(srv.address, "/debug/profile?seconds=0.1", "POST", timeout=60)
     finally:
         srv.stop()
     assert code == 200

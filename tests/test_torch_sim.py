@@ -548,7 +548,7 @@ def test_unported_config_methods_name_their_roadmap_item(method, item):
 
 
 @pytest.mark.parametrize(
-    "sub", ["serve", "swarm", "soak", "load", "scenario"]
+    "sub", ["swarm", "soak", "load", "scenario"]
 )
 def test_unported_subcommands_exit_non_zero_naming_their_item(sub, monkeypatch, capsys):
     from handel_tpu_torch.sim.__main__ import main
