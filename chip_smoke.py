@@ -101,7 +101,7 @@ Phases, one line each, any failure exits non-zero with no result line:
               load), launches, fill, host pack and dispatch ms per launch,
               the seconds in which a dispatch and a fetch were in flight
               together, peak memory, B1's calls by column count.
-     round    a 16-node Handel round on BN254TorchScheme(batch_size=128),
+     round    an 8-node Handel round on BN254TorchScheme(batch_size=128),
               cios, every node verifying through one service over the
               prepared engine (Config.verifier = service.verify, with
               InfiniteTimeout and random.Random(1 + i)), phase 7's forgery
@@ -109,18 +109,18 @@ Phases, one line each, any failure exits non-zero with no result line:
               verifying on the host oracle, sigVerifyFailed >= 1, device
               combine groups >= 1, fewer launches than nodes, dedup hits
               >= 1, B1 launched and B2, B3a, B3b not.
-     round_rns  the same round on fp_backend="rns" at 8 nodes: B2 launched,
-              B3a, B3b not, B1's count printed as it comes. It was 16 nodes
-              until phase 14 came.
+     round_rns  the same round on fp_backend="rns": B2 launched, B3a, B3b
+              not, B1's count printed as it comes. It was 16 nodes until
+              phase 14 came; the cios round was 16 until phase 15 came.
               In every phase-8 run no failover, no retry, the breaker
               closed at the end; an exception out of a lane's dispatch or
               fetch or out of device_combine fails the run at once.
               The rounds were 128 nodes until phase 9 took over the
               128-node service path at full width, then 32 until phase 10
-              came; 16 is the smallest case of the CPU parity test that
-              holds this round to the JAX package's
-              (tests/test_torch_service_engine.py), and it keeps the script
-              inside its time limit.
+              came, and 16 until phases 14 and 15 came, to keep the script
+              inside its time limit (16 is the smallest case of the CPU
+              parity test that holds this round to the JAX package's,
+              tests/test_torch_service_engine.py).
   9. sim      the port's entry point as a user runs it, in a subprocess with
               a time limit: python -m handel_tpu_torch.sim --config
               <tmp>/sim.toml --workdir <tmp>, where sim.toml is the repo's
@@ -299,10 +299,35 @@ Phases, one line each, any failure exits non-zero with no result line:
               calls by width, the swap stalls, the launches per epoch and
               those that overlapped a staging, and the second bank's bytes
               and allocation delta.
+15. weighted  the port's sim on the repo's results/geo_weighted.toml, its
+              [[runs]] table (stake weights from the pareto profile with
+              seed 7, a gate of 0.55 of the stake, the 5-region planet with
+              3 ms jitter, churners leaving 400 ms after the start, UDP,
+              period 10 ms, timeout 50 ms), as phase 9 runs its config, with
+              scheme "bn254-cuda", fp_backend "cios", shared_verifier,
+              batch_size 128 and max_timeout_s 600 (GEO_CHANGES), and its
+              run cut from 128 nodes in 1 process to 16 in 2 processes
+              sharing the card, its 12 churners to 2 (GEO_RUN_CHANGES; it
+              was 32 nodes in 4 processes with 3 churners until the script
+              ran over 1,000 s); threshold 0 resolves to 9, the gate to 8.8
+              of 16. The run
+              must exit `success` with `finished OK` in every process (each
+              node checks its own final on the host oracle) and no STALLED
+              line; each honest node's final stake at or over the gate and
+              the gate the one derived here from the port's make_weights;
+              each honest node marked every churner of its own process as
+              departed, and no node found the threshold unreachable; the
+              CSV shows geo-delayed sends; each process's verifier launched
+              and B1 launched in its round, with no failover, retry or
+              breaker transition; no node process wrote a traceback (a send
+              fired after its network stopped is dropped, ROADMAP §C C3).
+              The line gives the wall, the sigen wall (time to threshold),
+              launches, candidates, fill, departures, the achieved stakes
+              beside the gate, and B1's calls by process.
 
 Each path of phases 4, 6, 7, 8, 10, 11, 12's RPC and ban cases and 14 is one
 main-path run: every kernel's launch count is set to 0 just before it and
-read just after; phases 9's, 12's and 13's sim counts are the node
+read just after; phases 9's, 12's, 13's and 15's sim counts are the node
 processes' own, which start at 0. Then one JSON line of kernel figures, the seconds
 each phase took (`phases`), the total, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -310,6 +335,7 @@ each phase took (`phases`), the total, the nvidia-smi line again, and last
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
@@ -322,6 +348,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -342,7 +369,8 @@ ROUND_TIMEOUT_S = 600.0
 # phase 8: sessions of RANGE_CANDIDATES range candidates at once, and the
 # committee of the round through one service
 SERVICE_SESSIONS = 4
-SERVICE_ROUND_NODES = 16
+# (cut from 16 to pay for phase 15)
+SERVICE_ROUND_NODES = 8
 # ... and on the rns backend, cut from 16 to pay for phase 14
 SERVICE_ROUND_NODES_RNS = 8
 # phase 10: the mixed-message service launch's sessions, each on its own
@@ -420,6 +448,18 @@ LIFECYCLE_SESSIONS = 4
 LIFECYCLE_CANDIDATES = LANES // LIFECYCLE_SESSIONS
 LIFECYCLE_TICK_S = 0.25
 LIFECYCLE_SEED = SEED + 14
+# phase 15: the repo's weighted, churning geo config through the port's sim
+# entry point, with these changes (module docstring)
+GEO_CONFIG = "results/geo_weighted.toml"
+GEO_CHANGES = {"scheme": "bn254-cuda", "fp_backend": "cios", "shared_verifier": True,
+               "batch_size": LANES, "max_timeout_s": 600.0}
+# ... and its run cut from 128 nodes in one process to 16 in two, its 12
+# churners to 2 (about the same share of the committee): 32 nodes in four
+# processes with 3 churners put the script over 1,000 s of its 1,200
+GEO_RUN_CHANGES = {"nodes": 16, "processes": 2}
+GEO_CHURNERS = 2
+# its subprocess limit, below the changed max_timeout_s of 600
+GEO_LIMIT_S = 540.0
 # a secret key outside the round's registry (its keys come from
 # new_keypair(seed=i), SHA-256 derived): the forger of phase 7
 FORGER_SCALAR = 0x5EED_F0E6
@@ -1559,59 +1599,98 @@ def kernel_lines(workdir: str, prefix: str, phase: str) -> dict[str, dict]:
     return out
 
 
-def sim_phase() -> dict:
-    """Phase 9: the port's sim entry point on the repo's 128-node device
-    config (module docstring), in a subprocess of its own process group, so
-    that the time limit stops the node processes too. Raises on any failed
-    check; returns the run's figures."""
+def sim_env(root: Path) -> dict:
+    """The environment of a sim subprocess: the card, and the checkout first
+    on the import path."""
+    return dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
+                PYTHONPATH=os.pathsep.join(
+                    [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
+
+
+@contextlib.contextmanager
+def sim_run(phase: str, config: str, changes: dict, run_changes: dict, limit_s: float,
+            during=None):
+    """Runs the port's sim CLI on `config` with `changes` set on the config
+    and `run_changes` on its first run, in a subprocess of its own process
+    group, so that `limit_s` stops the node processes too. `during(tmp,
+    proc, deadline)`, when given, runs while the sim does and its result is
+    `live`. Raises on a timeout, a non-zero exit, a missing success line,
+    a node process without its `finished OK` and `kernels` lines, or a
+    node process count other than the run's. Yields, with the run's
+    directory still in place: cfg, run, tmp, out, err, logs ({node output
+    file: text}), processes ({node .out file: kernels line}), header, col
+    (the CSV's first row by column), wall_s, live."""
     from handel_tpu_torch.sim.config import dump_config, load_config
 
     root = Path(__file__).resolve().parent
-    cfg = load_config(str(root / SIM_CONFIG))
-    for key, value in SIM_CHANGES.items():
+    cfg = load_config(str(root / config))
+    for key, value in changes.items():
         setattr(cfg, key, value)
     run = cfg.runs[0]
-    for key, value in SIM_RUN_CHANGES.items():
-        setattr(run, key, value)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_") as tmp:
+    for key, value in run_changes.items():
+        target = run
+        *path, name = key.split(".")
+        for part in path:
+            target = getattr(target, part)
+        setattr(target, name, value)
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
         cfg_path = os.path.join(tmp, "sim.toml")
         with open(cfg_path, "w") as f:
             f.write(dump_config(cfg))
-        env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
-                   PYTHONPATH=os.pathsep.join(
-                       [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
         cmd = [sys.executable, "-m", "handel_tpu_torch.sim", "--config", cfg_path,
                "--workdir", tmp]
         t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True, start_new_session=True)
-        try:
-            out, err = proc.communicate(timeout=SIM_LIMIT_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            out, err = proc.communicate()
-            raise AssertionError(
-                f"sim: no result within {SIM_LIMIT_S} s\n{out[-2000:]}\n{err[-4000:]}")
-        finally:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
+        deadline = time.monotonic() + limit_s
+        live = None
+        with open(os.path.join(tmp, "sim.out"), "w") as out_f, \
+                open(os.path.join(tmp, "sim.err"), "w") as err_f:
+            proc = subprocess.Popen(cmd, cwd=root, env=sim_env(root), stdout=out_f,
+                                    stderr=err_f, text=True, start_new_session=True)
+            try:
+                if during is not None:
+                    live = during(tmp, proc, deadline)
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+            else:
+                timed_out = False
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
         wall_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "sim.out")) as f, open(os.path.join(tmp, "sim.err")) as g:
+            out, err = f.read(), g.read()
         logs = {}
         for name in sorted(os.listdir(tmp)):
             if name.startswith("node_0_") and name.endswith((".out", ".err")):
                 with open(os.path.join(tmp, name)) as f:
                     logs[name] = f.read()
-        if proc.returncode != 0 or "run 0: success" not in out:
+        if timed_out or proc.returncode != 0 or "run 0: success" not in out:
+            why = f"no result within {limit_s} s" if timed_out else f"exit {proc.returncode}"
             tails = "\n".join(f"--- {k}\n{v[-3000:]}" for k, v in logs.items())
-            raise AssertionError(
-                f"sim: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}\n{tails}")
-        processes = list(kernel_lines(tmp, "node_0_", "sim").values())
+            raise AssertionError(f"{phase}: {why}\n{out[-2000:]}\n{err[-4000:]}\n{tails}")
+        processes = kernel_lines(tmp, "node_0_", phase)
+        if len(processes) != run.processes:
+            raise AssertionError(f"{phase}: {len(processes)} node processes, "
+                                 f"expected {run.processes}")
         with open(os.path.join(tmp, "results_0.csv"), newline="") as f:
             header, row = list(csv.reader(f))[:2]
-    col = dict(zip(header, map(float, row)))
-    if len(processes) != run.processes:
-        raise AssertionError(f"sim: {len(processes)} node processes, expected {run.processes}")
+        yield SimpleNamespace(cfg=cfg, run=run, tmp=tmp, out=out, err=err, logs=logs,
+                              processes=processes, header=header,
+                              col=dict(zip(header, map(float, row))), wall_s=wall_s,
+                              live=live)
+
+
+def sim_phase() -> dict:
+    """Phase 9: the port's sim entry point on the repo's 128-node device
+    config (module docstring), in a subprocess of its own process group, so
+    that the time limit stops the node processes too. Raises on any failed
+    check; returns the run's figures."""
+    with sim_run("sim", SIM_CONFIG, SIM_CHANGES, SIM_RUN_CHANGES, SIM_LIMIT_S) as sim:
+        pass
+    cfg, run, header, col, wall_s = sim.cfg, sim.run, sim.header, sim.col, sim.wall_s
+    processes = list(sim.processes.values())
     launches = col["device_verifier_verifierLaunches_sum"]
     per_process = [p["verifier_launches"] for p in processes]
     if launches < run.processes or not all(n and n >= 1 for n in per_process):
@@ -1853,64 +1932,15 @@ def adversarial_phase() -> dict:
     its own process group under ADV_LIMIT_S; scraped while it runs
     (`scrape_phase`), then its outputs, CSV and traces checked
     (`trace_phase`). Raises on any failed check; returns the figures."""
-    from handel_tpu_torch.sim.config import dump_config, load_config
-
-    root = Path(__file__).resolve().parent
-    cfg = load_config(str(root / ADV_CONFIG))
-    for key, value in ADV_CHANGES.items():
-        setattr(cfg, key, value)
-    run = cfg.runs[0]
-    for key, value in ADV_RUN_CHANGES.items():
-        setattr(run, key, value)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_adv_") as tmp:
-        cfg_path = os.path.join(tmp, "sim.toml")
-        with open(cfg_path, "w") as f:
-            f.write(dump_config(cfg))
-        env = dict(os.environ, HANDEL_TORCH_DEVICE="cuda",
-                   PYTHONPATH=os.pathsep.join(
-                       [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
-        cmd = [sys.executable, "-m", "handel_tpu_torch.sim", "--config", cfg_path,
-               "--workdir", tmp]
-        t0 = time.perf_counter()
-        deadline = time.monotonic() + ADV_LIMIT_S
-        with open(os.path.join(tmp, "sim.out"), "w") as out_f, \
-                open(os.path.join(tmp, "sim.err"), "w") as err_f:
-            proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out_f, stderr=err_f,
-                                    text=True, start_new_session=True)
-            try:
-                live = scrape_phase(tmp, proc, deadline)
-                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"adversarial: no result within {ADV_LIMIT_S} s")
-            finally:
-                if proc.poll() is None:
-                    os.killpg(proc.pid, signal.SIGKILL)
-                    proc.wait()
-        wall_s = time.perf_counter() - t0
-        with open(os.path.join(tmp, "sim.out")) as f:
-            out = f.read()
-        logs = {}
-        for name in sorted(os.listdir(tmp)):
-            if name.startswith("node_0_") and name.endswith((".out", ".err")):
-                with open(os.path.join(tmp, name)) as f:
-                    logs[name] = f.read()
-        if proc.returncode != 0 or "run 0: success" not in out:
-            with open(os.path.join(tmp, "sim.err")) as f:
-                err = f.read()
-            tails = "\n".join(f"--- {k}\n{v[-3000:]}" for k, v in logs.items())
-            raise AssertionError(
-                f"adversarial: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}\n{tails}")
-        processes = list(kernel_lines(tmp, "node_0_", "adversarial").values())
-        banned = sorted({int(m) for text in logs.values()
-                         for m in re.findall(r"origin (\d+) is banned", text)})
-        with open(os.path.join(tmp, "results_0.csv"), newline="") as f:
-            header, row = list(csv.reader(f))[:2]
-        col = dict(zip(header, map(float, row)))
+    with sim_run("adversarial", ADV_CONFIG, ADV_CHANGES, ADV_RUN_CHANGES, ADV_LIMIT_S,
+                 during=scrape_phase) as sim:
+        col = sim.col
         launches = col["device_verifier_verifierLaunches_sum"]
-        traced = trace_phase(os.path.join(tmp, "trace_0"), run.processes, launches)
-    if len(processes) != run.processes:
-        raise AssertionError(f"adversarial: {len(processes)} node processes, "
-                             f"expected {run.processes}")
+        traced = trace_phase(os.path.join(sim.tmp, "trace_0"), sim.run.processes, launches)
+    cfg, run, live, wall_s = sim.cfg, sim.run, sim.live, sim.wall_s
+    processes = list(sim.processes.values())
+    banned = sorted({int(m) for text in sim.logs.values()
+                     for m in re.findall(r"origin (\d+) is banned", text)})
     per_process = [p["verifier_launches"] for p in processes]
     if not all(n and n >= 1 for n in per_process):
         raise AssertionError(f"adversarial: verifier launches by process {per_process}")
@@ -2367,6 +2397,106 @@ def lifecycle_phase(cons, pks, sks, counters) -> dict:
     for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
         if launches[k] != 0:
             raise AssertionError(f"lifecycle: {k} launched {launches[k]} times")
+    return fig
+
+
+def weighted_phase() -> dict:
+    """Phase 15: the port's sim on the repo's weighted, churning geo config
+    (module docstring), in a subprocess of its own process group under
+    GEO_LIMIT_S. Raises on any failed check; returns the run's figures."""
+    from handel_tpu_torch.scenario.weights import make_weights
+    from handel_tpu_torch.sim.adversary import ROLE_CHURNER, adversary_roles
+    from handel_tpu_torch.sim.allocator import new_allocator
+
+    with sim_run("weighted", GEO_CONFIG, GEO_CHANGES,
+                 {**GEO_RUN_CHANGES, "adversaries.churner": GEO_CHURNERS}, GEO_LIMIT_S) as sim:
+        pass
+    cfg, run, col, wall_s, processes = sim.cfg, sim.run, sim.col, sim.wall_s, sim.processes
+    # the checks on the node processes' own outputs: no stall, no traceback
+    # (C3: a delayed send that fires after its network stopped is dropped)
+    for name, text in {"sim.err": sim.err, **sim.logs}.items():
+        for bad in ("STALLED", "Traceback"):
+            if bad in text:
+                raise AssertionError(f"weighted: {bad} in {name}:\n{text[-4000:]}")
+    # the gate, derived here as the node derives it from the TOML
+    weights = make_weights(cfg.scenario.weight_profile, run.nodes,
+                           seed=cfg.scenario.weight_seed)
+    threshold = run.resolved_threshold()
+    gate = cfg.scenario.weight_threshold(threshold, run.nodes, weights)
+    alloc = new_allocator(cfg.allocator).allocate(run.nodes, 1, run.processes, run.failing)
+    offline = {nid for nid, slot in alloc.items() if not slot.active}
+    roles = adversary_roles(run.adversaries.counts(), run.nodes, offline)
+    churners = sorted(i for i, r in roles.items() if r == ROLE_CHURNER)
+    if len(churners) != GEO_CHURNERS:
+        raise AssertionError(f"weighted: churners {churners}")
+    stakes, departures, per_process, b1_by_process = {}, {}, [], {}
+    for name, kern in sorted(processes.items()):
+        p = kern["weighted"]
+        pid = int(name[len("node_0_"):-len(".out")])
+        local = sum(1 for c in churners if alloc[c].process == pid)
+        if p["gate"] != gate:
+            raise AssertionError(f"weighted: {name} gate {p['gate']}, expected {gate}")
+        short = {k: v for k, v in p["departures"].items() if v < local}
+        if short:
+            raise AssertionError(f"weighted: {name} nodes {short} missed some of their "
+                                 f"process's {local} churners")
+        below = {k: v for k, v in p["final_stakes"].items() if v < gate - 1e-9}
+        if below or len(p["final_stakes"]) != len(p["departures"]):
+            raise AssertionError(f"weighted: {name} finals {p['final_stakes']} "
+                                 f"against the gate {gate}")
+        stakes.update(p["final_stakes"])
+        departures.update(p["departures"])
+        if not (kern["verifier_launches"] and kern["verifier_launches"] >= 1):
+            raise AssertionError(f"weighted: {name} verifier launches "
+                                 f"{kern['verifier_launches']}")
+        if kern["launches_in_round"]["fp_mont_mul"] == 0:
+            raise AssertionError(f"weighted: B1 did not launch in {name}'s round")
+        per_process.append(kern["verifier_launches"])
+        b1_by_process[pid] = kern["launches_in_round"]["fp_mont_mul"]
+    if len(stakes) != run.nodes - len(churners):
+        raise AssertionError(f"weighted: {len(stakes)} finals, expected "
+                             f"{run.nodes - len(churners)}")
+    if col["sigs_thresholdUnreachableCt_max"] != 0:
+        raise AssertionError("weighted: a node found the threshold unreachable")
+    if not (col["net_geoDelayed_sum"] > 0 and col["net_delayMs_n"] > 0):
+        raise AssertionError("weighted: no geo delay in the results")
+    if not col["device_verifier_verifierCandidates_sum"] > 0:
+        raise AssertionError("weighted: the shared verifiers took no candidate")
+    for k in ("failoverBatches", "deviceRetryCt", "breakerTransitionsCt"):
+        if col[f"device_verifier_{k}_sum"] != 0:
+            raise AssertionError(f"weighted: device_verifier_{k}_sum = "
+                                 f"{col[f'device_verifier_{k}_sum']}")
+    dispatch_calls = col["device_dispatch_dispatchCalls_sum"]
+    fig = {
+        "config": GEO_CONFIG, "changed": GEO_CHANGES,
+        "reduced": {**GEO_RUN_CHANGES, "churner": GEO_CHURNERS},
+        "nodes": run.nodes, "threshold": threshold, "processes": run.processes,
+        "planet": cfg.scenario.planet, "weight_profile": cfg.scenario.weight_profile,
+        "churners": churners, "churn_after_ms": run.adversaries.churn_after_ms,
+        "wall_s": wall_s, "sigen_wall_avg_s": col["sigen_wall_avg"],
+        "sigen_wall_max_s": col["sigen_wall_max"],
+        "launches": col["device_verifier_verifierLaunches_sum"],
+        "candidates": col["device_verifier_verifierCandidates_sum"],
+        "launch_fill_avg": col["device_verifier_launchFillRatio_avg"],
+        "dedup_hits": col["device_verifier_dedupHits_sum"],
+        "dispatch_ms_per_call": col["device_dispatch_dispatchTimeMs_sum"] / max(1.0, dispatch_calls),
+        "departures": departures,
+        "departed_ct": {k: col[f"sigs_departedCt_{k}"] for k in ("min", "max", "sum")},
+        "sig_departed_dropped": col["sigs_sigDepartedDropped_sum"],
+        "weight_gate": gate, "stake_total": float(sum(weights)),
+        "achieved_stake": {"min": min(stakes.values()), "max": max(stakes.values())},
+        "geo_delayed": col["net_geoDelayed_sum"],
+        "delay_ms": {k: col[f"net_delayMs_{k}"] for k in ("p50", "p90", "p99")},
+        "combine_device_groups": col["sigs_combineDeviceGroups_sum"],
+        "device_combine_s": [p["device_combine"]["combineTimeMs"] / 1000.0
+                             for p in processes.values()],
+        "verifier_launches_by_process": per_process,
+        "b1_launches_in_round_by_process": b1_by_process,
+        "b1_launches": sum(p["launches"]["fp_mont_mul"] for p in processes.values()),
+        "b1_launches_in_round": sum(b1_by_process.values()),
+        "max_memory_allocated": [p["max_memory_allocated"] for p in processes.values()],
+    }
+    line("weighted", **fig)
     return fig
 
 
@@ -3064,6 +3194,9 @@ def main() -> int:
     done("fleet")
     life = lifecycle_phase(cons, pks, sks, counters)
     done("lifecycle")
+    torch.cuda.empty_cache()  # phase 15's node processes share the card
+    weighted = weighted_phase()
+    done("weighted")
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
@@ -3135,7 +3268,10 @@ def main() -> int:
               on_lifecycle={"launches": life["kernel_launches"]["fp_mont_mul"],
                             "in_staging": [st["b1_calls"] for st in life["staging"]],
                             "staging_widths": [st["b1_widths"] for st in life["staging"]],
-                            "in_flip": [f["b1_calls"] for f in life["flips"]]}),
+                            "in_flip": [f["b1_calls"] for f in life["flips"]]},
+              on_weighted_sim={"launches": weighted["b1_launches"],
+                               "launches_in_round": weighted["b1_launches_in_round"],
+                               "by_process": weighted["b1_launches_in_round_by_process"]}),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],

@@ -166,6 +166,20 @@ class BitSet:
         )[: self._n]
         return np.nonzero(bits)[0].tolist()
 
+    def weight_sum(self, weights) -> float:
+        """Sum of `weights[i]` over set bits: the stake-weighted sibling of
+        `cardinality()`, one unpackbits and a dot. `weights` is any
+        array-like of length >= n; with all-1.0 weights this equals
+        `cardinality()` exactly (float sums of 1.0 are exact well past any
+        registry size)."""
+        if self._n == 0:
+            return 0.0
+        bits = np.unpackbits(
+            self._words.view(np.uint8), bitorder="little"
+        )[: self._n]
+        w = np.asarray(weights, dtype=np.float64)
+        return float(bits.astype(np.float64) @ w[: self._n])
+
     # -- device views ------------------------------------------------------
 
     def words(self) -> np.ndarray:
@@ -376,6 +390,14 @@ class AllOnesBitSet:
 
     def indices(self) -> range:
         return range(self._n)
+
+    def weight_sum(self, weights) -> float:
+        """Every bit is set, so the weighted cardinality is the plain sum."""
+        if self._n == 0:
+            return 0.0
+        return float(
+            np.asarray(weights, dtype=np.float64)[: self._n].sum()
+        )
 
     def clone(self) -> "AllOnesBitSet":
         return self  # immutable

@@ -12,8 +12,8 @@ launch), `verifier` (an async batch verifier in place of the scheme's own
 `batch_verify`), the peer-penalty and flood bounds, and the service's
 `session` and `epoch` with its `new_scorer` (service/session.py).
 Fields of the JAX package's Config that serve planes the port has not
-ported yet (stake weights, the windowed store and the simulated verify
-sleep) are not here, nor are its factory hooks that no caller of the port
+ported yet (the windowed store and the simulated verify sleep) are not
+here, nor are its factory hooks that no caller of the port
 sets (bitset and partitioner factories, and the peer-penalty switch): a
 node always builds `BitSet` and `BinomialPartitioner`. The evaluator and
 processing factories (the sim's `evaluator = "eval1"` / `"fifo"`) and
@@ -110,6 +110,16 @@ class Config:
     # can attribute WAN hops by region pair. "" = untagged (span args
     # unchanged).
     region: str = ""
+    # per-identity stake weights, indexed by identity id (any array-like the
+    # bitset's weight_sum can dot against: ArrayRegistry.weights()). None
+    # keeps the count-based threshold; all-1.0 weights are bit for bit
+    # equivalent to counting.
+    weights: Optional[object] = None
+    # minimum weight sum in an output multisignature; only read when
+    # `weights` is set. 0.0 = derive from `contributions` as the same
+    # fraction of total weight that `contributions` is of the node count
+    # (so a 51% count threshold becomes a 51% stake threshold).
+    weight_threshold: float = 0.0
 
     # -- batch verification ------------------------------------------------
     # max candidates per device verification launch

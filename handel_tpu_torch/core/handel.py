@@ -12,9 +12,8 @@ no locks, and many logical nodes can share one loop (and one device)
 in-process. Verified signatures flow back via a direct callback
 (`_on_verified`) instead of a channel.
 
-Cut from the JAX package's Handel, with the planes they serve (ROADMAP):
-stake-weighted thresholds, departures of members mid-round, the windowed
-store and the external timer wheel.
+Cut from the JAX package's Handel, with the plane they serve (ROADMAP item
+8e, swarm): the windowed store and the external timer wheel.
 """
 
 from __future__ import annotations
@@ -56,6 +55,11 @@ class Level:
         # any indexable sequence works (list, RegistrySlice): a lazy range
         # view instead of a copy keeps a level O(1) memory
         self.nodes = nodes if hasattr(nodes, "__getitem__") else list(nodes)
+        # dynamic membership: global ids of members of THIS level that left
+        # mid-aggregation. They are skipped in peer selection and excluded
+        # from the receive-complete count: the level's effective size
+        # shrinks without rebuilding the partitioner.
+        self.departed: set[int] = set()
         self.send_started = False
         self.rcv_completed = False
         self.send_pos = 0
@@ -87,7 +91,7 @@ class Level:
         an all-banned level degrades to an empty selection, not a spin.
         """
         size = min(count, len(self.nodes))
-        if self.scorer is None:
+        if self.scorer is None and not self.departed:
             res = []
             for _ in range(size):
                 res.append(self.nodes[self.send_pos])
@@ -103,10 +107,12 @@ class Level:
                 break
             peer = self.nodes[self.send_pos]
             self.send_pos = (self.send_pos + 1) % len(self.nodes)
-            if self.scorer.banned(peer.id):
+            if peer.id in self.departed:
+                continue  # a gone member: a packet there is pure loss
+            if self.scorer is not None and self.scorer.banned(peer.id):
                 self.banned_skips += 1
                 continue
-            if self.scorer.demoted(peer.id):
+            if self.scorer is not None and self.scorer.demoted(peer.id):
                 tick = self._demote_tick.get(peer.id, 0) + 1
                 self._demote_tick[peer.id] = tick
                 if tick % 2 == 1:
@@ -115,6 +121,10 @@ class Level:
             res.append(peer)
         self.send_peers_ct += size
         return res
+
+    def expected_members(self) -> int:
+        """Members that can still contribute: level size minus departures."""
+        return len(self.nodes) - len(self.departed)
 
     def update_sig_to_send(self, sig: MultiSignature) -> bool:
         """Track the best signature we can send at this level; reset the peer
@@ -240,7 +250,26 @@ class Handel:
             combiner=(
                 self.combine_shim.combine_many if self.combine_shim else None
             ),
+            weights=self.c.weights,
         )
+        # stake-weighted threshold: with a weight vector set, the
+        # final-signature gate compares accumulated stake against
+        # `weight_threshold`, by default the same fraction of total stake
+        # that `contributions` is of the node count, computed as
+        # (threshold * total) / n so all-1.0 weights yield exactly the
+        # integer count threshold (no float drift on the no-op path).
+        self.weights = self.c.weights
+        self.weight_threshold = 0.0
+        self.total_weight = 0.0
+        if self.weights is not None:
+            self.total_weight = float(sum(self.weights))
+            self.weight_threshold = self.c.weight_threshold or (
+                self.threshold * self.total_weight / registry.size()
+            )
+        # dynamic membership: global ids known to have left mid-run (the
+        # scenario engine and churner adversaries broadcast departures)
+        self.departed: set[int] = set()
+        self.threshold_unreachable_ct = 0
         # our own signature seeds the store at level 0 (handel.go:108-116)
         first_bs = BitSet(1)
         first_bs.set(0, True)
@@ -499,9 +528,17 @@ class Handel:
             self.scorer.report(sp.origin)
 
     def _check_final_signature(self, sp: IncomingSig) -> None:
-        """Emit a new best full signature above the threshold (handel.go:271-296)."""
+        """Emit a new best full signature above the threshold (handel.go:271-296).
+
+        With stake weights the gate is the accumulated weight against
+        `weight_threshold`; the count path is untouched when `weights` is
+        None, and all-1.0 weights make both gates open at the same instant.
+        """
         card = self.store.full_cardinality()
-        if card < self.threshold:
+        if self.weights is not None:
+            if self.store.full_weight(self.weights) < self.weight_threshold:
+                return
+        elif card < self.threshold:
             return
         if self.best is not None and card <= self.best.cardinality():
             return
@@ -546,9 +583,12 @@ class Handel:
             self._fastpath_level(lid, up)
 
     def _maybe_complete_level(self, lid: int, lvl: Level) -> None:
-        """Mark a level receive-complete when the best covers every member."""
+        """Mark a level receive-complete when the best covers every member
+        that can still contribute: with departures the effective size
+        shrinks, so a level missing only gone members completes instead of
+        waiting forever on signatures that will never come."""
         best = self.store.best(lid)
-        if best is None or best.cardinality() < len(lvl.nodes):
+        if best is None or best.cardinality() < lvl.expected_members():
             return
         self.log.debug("level_complete", lid)
         lvl.rcv_completed = True
@@ -570,6 +610,63 @@ class Handel:
         ms = self.store.combined(lid - 1)
         if ms is not None and up.update_sig_to_send(ms):
             self._send_update(up, self.c.fast_path)
+
+    # -- dynamic membership ------------------------------------------------
+
+    def mark_departed(self, node_id: int) -> None:
+        """Record that `node_id` left the committee mid-aggregation.
+
+        Re-levels without rebuilding the partitioner: the member's level
+        shrinks (peer selection skips it, receive-completion stops waiting
+        for it), its future individual sigs are suppressed in the pipeline,
+        and the threshold is re-evaluated against what the remaining
+        membership can still deliver. Idempotent; contributions the member
+        delivered before leaving keep counting: a signature is a fact.
+        """
+        if node_id == self.id.id or node_id in self.departed:
+            return
+        self.departed.add(node_id)
+        mark = getattr(self.proc, "mark_departed", None)
+        if mark is not None:
+            mark(node_id)
+        for lid, lvl in self.levels.items():
+            lo, hi = self.partitioner.range_level(lid)
+            if lo <= node_id < hi:
+                lvl.departed.add(node_id)
+                if not lvl.rcv_completed:
+                    self._maybe_complete_level(lid, lvl)
+                    if lvl.rcv_completed:
+                        # completing a level can unlock upward fast paths
+                        for uid, up in self.levels.items():
+                            if uid > lid:
+                                self._fastpath_level(uid, up)
+                break
+        self._recheck_threshold_reachable()
+
+    def _recheck_threshold_reachable(self) -> None:
+        """Departure-time threshold re-evaluation: can the remaining
+        membership still reach the (weighted) threshold? Banked
+        contributions from departed members still count; only their
+        missing, never-coming contributions are written off."""
+        full = self.store.full_signature()
+        have = full.bitset if full is not None else None
+
+        def missing(d: int) -> bool:
+            return have is None or not have.get(d)
+
+        if self.weights is not None:
+            gone = sum(float(self.weights[d]) for d in self.departed if missing(d))
+            unreachable = self.total_weight - gone < self.weight_threshold
+        else:
+            gone_ct = sum(1 for d in self.departed if missing(d))
+            unreachable = self.reg.size() - gone_ct < self.threshold
+        if unreachable:
+            self.threshold_unreachable_ct += 1
+            self._warn_once(
+                "threshold_unreachable",
+                f"{len(self.departed)} departures leave the threshold "
+                f"unreachable for the remaining membership",
+            )
 
     # -- outbound path (handel.go:198-225, 343-368) ------------------------
 
@@ -657,10 +754,9 @@ class Handel:
             "bestCardinality": float(
                 self.best.cardinality() if self.best is not None else 0
             ),
-            # departures are not ported (ROADMAP): both counts stay 0, and
-            # the keys keep the monitor's CSV schema the JAX package's
-            "departedCt": 0.0,
-            "thresholdUnreachableCt": 0.0,
+            # dynamic membership
+            "departedCt": float(len(self.departed)),
+            "thresholdUnreachableCt": float(self.threshold_unreachable_ct),
             **self._warn.values(),
             **self.proc.values(),
             **self.store.values(),

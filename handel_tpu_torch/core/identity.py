@@ -12,18 +12,32 @@ from __future__ import annotations
 import random
 from typing import Sequence
 
+import numpy as np
+
 from handel_tpu_torch.core.crypto import PublicKey
 
 
 class Identity:
-    """A participant: network address + public key + dense integer id."""
+    """A participant: network address + public key + dense integer id.
 
-    __slots__ = ("id", "address", "public_key")
+    `weight` is the identity's stake for weighted-threshold committees; the
+    default 1.0 makes every weighted surface reduce to plain counting, so
+    count-weight committees behave bit for bit like the unweighted protocol.
+    """
 
-    def __init__(self, id: int, address: str, public_key: PublicKey | None):
+    __slots__ = ("id", "address", "public_key", "weight")
+
+    def __init__(
+        self,
+        id: int,
+        address: str,
+        public_key: PublicKey | None,
+        weight: float = 1.0,
+    ):
         self.id = id
         self.address = address
         self.public_key = public_key
+        self.weight = weight
 
     def __repr__(self) -> str:
         return f"Identity(id={self.id}, addr={self.address!r})"
@@ -93,6 +107,7 @@ class ArrayRegistry(Registry):
     def __init__(self, identities: Sequence[Identity]):
         self._ids = list(identities)
         self._pks: list[PublicKey] | None = None
+        self._weights = None
         for i, ident in enumerate(self._ids):
             if ident.id != i:
                 raise ValueError(f"registry identity {i} has id {ident.id}")
@@ -115,6 +130,16 @@ class ArrayRegistry(Registry):
         if self._pks is None:
             self._pks = [i.public_key for i in self._ids]
         return self._pks
+
+    def weights(self):
+        """Dense float64 stake vector indexed by identity id: the array
+        `BitSet.weight_sum` dots against. Cached like public_keys(); call
+        sites treat it read-only."""
+        if self._weights is None:
+            self._weights = np.array(
+                [i.weight for i in self._ids], dtype=np.float64
+            )
+        return self._weights
 
 
 def shuffle(items: list, seed_rng: random.Random) -> None:

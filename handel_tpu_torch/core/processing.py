@@ -259,6 +259,13 @@ class BatchProcessing:
             self._span_tags["session"] = session
         if epoch:
             self._span_tags["epoch"] = epoch
+        # dynamic membership: origins known to have left the committee.
+        # Their individual sigs are suppressed at intake (gossip keeps
+        # re-delivering them long after the member is gone, and each copy
+        # would burn a verify lane); aggregates relayed by a departed node
+        # still flow: they carry live members' signatures.
+        self._departed: set[int] = set()
+        self.sig_departed_dropped = 0
 
         # priority queue of (-score, seq, sig): scored once at enqueue, lazily
         # re-scored at dequeue (see _select_batch). `_live` maps seq -> sig
@@ -307,6 +314,9 @@ class BatchProcessing:
     def add(self, sp: IncomingSig) -> None:
         if self._stopped:
             return
+        if sp.individual and sp.origin in self._departed:
+            self.sig_departed_dropped += 1
+            return
         if self.filter.accept(sp):
             self._enqueue(sp)
             if self._queue_len():
@@ -345,6 +355,12 @@ class BatchProcessing:
 
     def _queue_len(self) -> int:
         return len(self._live)
+
+    def mark_departed(self, origin: int) -> None:
+        """Suppress future individual sigs from a departed member (the
+        already-queued ones fail no invariants: they just verify and merge,
+        which is correct, since the member signed before leaving)."""
+        self._departed.add(origin)
 
     def pending(self) -> list[IncomingSig]:
         """Snapshot of queued candidates (service/session.py pending work)."""
@@ -607,9 +623,7 @@ class BatchProcessing:
             "sigQueueSize": self.sig_queue_size / checked if checked else 0.0,
             "sigSuppressed": float(self.sig_suppressed),
             "sigDroppedOverflow": float(self.sig_dropped_overflow),
-            # departures are not ported (ROADMAP): the count stays 0, and
-            # the key keeps the monitor's CSV schema the JAX package's
-            "sigDepartedDropped": 0.0,
+            "sigDepartedDropped": float(self.sig_departed_dropped),
             "sigVerifyFailed": float(self.sig_verify_failed),
             "sigCheckingTime": (
                 self.sig_checking_time_ms / checked if checked else 0.0

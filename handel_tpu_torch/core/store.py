@@ -142,10 +142,16 @@ class SignatureStore:
         new_bitset: Callable[[int], BitSet] = BitSet,
         constructor: Constructor | None = None,
         combiner: Callable[[list], object] | None = None,
+        weights=None,
     ):
         self.part = partitioner
         self.nbs = new_bitset
         self.cons = constructor
+        # per-identity stake weights in global registry coordinates; None =
+        # count-based scoring. Level bitsets slice it through range_level,
+        # which is exact because the partitioner embeds level l's bitset at
+        # range_level(l)[0].
+        self.weights = weights
         # batched signature combiner: list of Signatures -> their combined
         # Signature in ONE call (core/processing.py CombineShim routes it to
         # the device scheme's combine_batch). None = host-serial
@@ -204,6 +210,7 @@ class SignatureStore:
 
         # what we'd have after patching with known-verified individual sigs
         with_indiv = sp.ms.bitset.or_(self._iv(sp.level))
+        final_set = with_indiv
         if cur_best is None:
             new_total = with_indiv.cardinality()
             added_sigs = new_total
@@ -228,8 +235,38 @@ class SignatureStore:
         if new_total == to_receive:
             # completes a level — top priority, lower levels first
             return 1_000_000 - sp.level * 10 - combine_ct
-        # useful but incomplete: favor lower levels and bigger gains
-        return 100_000 - sp.level * 100 + added_sigs * 10 - combine_ct
+        # useful but incomplete: favor lower levels and bigger gains. With
+        # stake weights, the gain term scores the weight the candidate adds,
+        # normalized back to count units so it stays inside this bracket;
+        # all-1.0 weights reduce to exactly added_sigs.
+        return (
+            100_000
+            - sp.level * 100
+            + self._gain_units(sp.level, added_sigs, cur_best, final_set)
+            - combine_ct
+        )
+
+    def _gain_units(self, level, added_sigs, cur_best, final_set) -> int:
+        """The `added_sigs * 10` scoring term, stake-aware.
+
+        Count path: added_sigs * 10, the reference score (store.go:180).
+        Weighted path: the weight the candidate's new bits add, scaled by
+        level_size/level_weight into equivalent-count units and clamped to
+        the count bracket's natural range. All-1.0 weights make the scale
+        factor exactly 1.0, so the two paths return identical ints.
+        """
+        if self.weights is None:
+            return added_sigs * 10
+        lo, hi = self.part.range_level(level)
+        lvl_w = self.weights[lo:hi]
+        gained = final_set.weight_sum(lvl_w)
+        if cur_best is not None:
+            gained -= cur_best.bitset.weight_sum(lvl_w)
+        total_w = float(sum(lvl_w))
+        if total_w <= 0.0:
+            return added_sigs * 10
+        units = gained * ((hi - lo) / total_w)
+        return max(0, min(hi - lo, round(units))) * 10
 
     # -- storage (store.go:82-99, 188-229) ---------------------------------
 
@@ -336,6 +373,21 @@ class SignatureStore:
     def full_cardinality(self) -> int:
         """Cardinality `full_signature()` would have, without combining."""
         return sum(ms.cardinality() for ms in self.best_by_level.values())
+
+    def full_weight(self, weights=None) -> float:
+        """Stake weight `full_signature()` would carry, without combining:
+        the weighted sibling of `full_cardinality()`. Level ranges are
+        disjoint, so the total is a per-level `weight_sum` over the level's
+        slice of the global weight vector. With all-1.0 weights this equals
+        `full_cardinality()` exactly."""
+        w = self.weights if weights is None else weights
+        if w is None:
+            return float(self.full_cardinality())
+        total = 0.0
+        for lvl, ms in self.best_by_level.items():
+            lo, hi = self.part.range_level(lvl)
+            total += ms.bitset.weight_sum(w[lo:hi])
+        return total
 
     def full_signature(self) -> MultiSignature | None:
         """Registry-sized combination of everything we have (store.go:238-246).

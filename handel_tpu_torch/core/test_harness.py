@@ -24,8 +24,10 @@ byzantine roles (sim/adversary.py), `recorder` shares one flight recorder
 (core/trace.py) across the nodes and `metrics_port` serves the cluster's
 /metrics (core/metrics.py), and `geo` wraps each node's network in a
 `GeoNetwork` (network/geo.py: region-pair WAN delay, chaos composed on top)
-and tags its spans with its region. The JAX package's churner role
-(ROADMAP item 8) raises NotImplementedError.
+and tags its spans with its region. Stake weights reach the nodes through
+`config_factory` (`cfg.weights`); a churner role leaves after
+`churn_after_s` and its departure is broadcast to every co-resident node
+(`Handel.mark_departed`).
 """
 
 from __future__ import annotations
@@ -108,6 +110,7 @@ class LocalCluster:
         recorder=None,
         metrics_port: int | None = None,
         verifier_service=None,
+        churn_after_s: float = 0.5,
     ):
         self.n = n
         self.scheme = scheme or FakeScheme()
@@ -177,6 +180,7 @@ class LocalCluster:
                     self.msg,
                     secrets[i],
                     cfg,
+                    leave_after_s=churn_after_s,
                 )
                 continue
             own_sig = secrets[i].sign(self.msg)
@@ -185,6 +189,27 @@ class LocalCluster:
             )
         self.threshold = next(iter(self.handels.values())).threshold
         self.verifier_service = verifier_service
+
+        # churn (sim/adversary.py Churner): a departing node broadcasts
+        # Handel.mark_departed to every co-resident peer, so survivors
+        # re-level and re-evaluate threshold reachability immediately
+        churners = [
+            a for a in self.adversaries.values()
+            if getattr(a, "role", None) == "churner"
+        ]
+        if churners:
+            peers = list(self.handels.values()) + list(
+                self.adversaries.values()
+            )
+
+            def _on_depart(departed_id: int, _peers=peers) -> None:
+                for p in _peers:
+                    md = getattr(p, "mark_departed", None)
+                    if md is not None:
+                        md(departed_id)
+
+            for c in churners:
+                c.on_depart = _on_depart
 
         # live telemetry (core/metrics.py): one registry + HTTP endpoint for
         # the whole in-process cluster, every node's planes under a `node`

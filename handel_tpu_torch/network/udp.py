@@ -92,6 +92,12 @@ class UDPNetwork:
     def send(self, identities: Sequence["Identity"], packet: Packet) -> None:  # noqa: F821
         if self._transport is None:
             raise RuntimeError("UDPNetwork not started")
+        if self._transport.is_closing():
+            # a send that fires after stop(): a delayed send (GeoNetwork's
+            # WAN delay, ChaosNetwork's delay and reorder) scheduled before
+            # the stop. A closed datagram transport has no socket left, and
+            # sendto would raise AttributeError inside the timer callback
+            return
         wire = self.enc.encode(packet)
         for ident in identities:
             try:

@@ -102,6 +102,12 @@ class VerifierServer:
         self.host = host
         self.port = port
         self._server: asyncio.AbstractServer | None = None
+        # client links still open, and an event set whenever none is: the
+        # node process waits on it after the END barrier before it exits
+        # (wait_clients_closed)
+        self._open_links = 0
+        self._no_links = asyncio.Event()
+        self._no_links.set()
         # monitor plane
         self.requests_served = 0
         self.candidates_served = 0
@@ -114,8 +120,22 @@ class VerifierServer:
         self.port = self._server.sockets[0].getsockname()[1]
 
     def stop(self) -> None:
+        """Stop accepting links; the open ones are served until their
+        clients close them (wait_clients_closed) or the process exits."""
         if self._server:
             self._server.close()
+
+    async def wait_clients_closed(self, timeout: float) -> bool:
+        """Wait until every client has closed its link, at most `timeout`
+        seconds; True when none is left open. A client counts a link that
+        its server closes as a link error, in flight or not, so a serving
+        process that exits first would put an error on a client's record
+        of a clean run."""
+        try:
+            await asyncio.wait_for(self._no_links.wait(), timeout)
+        except asyncio.TimeoutError:
+            return False
+        return True
 
     async def _handle(self, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter) -> None:
@@ -123,6 +143,8 @@ class VerifierServer:
         # processed requests must not interleave mid-frame
         lock = asyncio.Lock()
         tasks = TaskSet()
+        self._open_links += 1
+        self._no_links.clear()
         try:
             while True:
                 try:
@@ -133,6 +155,9 @@ class VerifierServer:
         finally:
             tasks.cancel_all()
             writer.close()
+            self._open_links -= 1
+            if not self._open_links:
+                self._no_links.set()
 
     async def _serve_one(self, body: bytes, writer, lock) -> None:
         # recover req_id independently of full request parsing: an error

@@ -16,11 +16,13 @@ These roles actively misbehave, each aimed at one hardening layer:
                    with random signature bytes, each content-distinct, so
                    only the bounded pending queue (BatchProcessing
                    max_pending) and the ban threshold stop the growth.
-
-The reference's fourth role, `churner` (honest until it departs mid-round),
-needs departures (`Handel.mark_departed`, ROADMAP item 8): its seat is
-computed as the reference computes it, so every role mapping matches, but
-`build_adversary` raises NotImplementedError for it.
+  churner          dynamic membership (scenario engine): participates
+                   HONESTLY until `leave_after_s`, then departs — stops
+                   gossiping and fires `on_depart(node_id)` so the harness
+                   can broadcast Handel.mark_departed to survivors, who
+                   re-level around the hole and re-evaluate threshold
+                   reachability. Not byzantine, but seated by the same
+                   deterministic role machinery.
 
 Role assignment (`adversary_roles`) is deterministic from the run config so
 every node process computes the same mapping independently: adversaries take
@@ -231,10 +233,52 @@ class Flooder(Handel):
         return {**super().values(), "advFloodedCt": float(self.flooded_ct)}
 
 
+class Churner(Handel):
+    """Honest until `leave_after_s`, then gone: cancels its own gossip and
+    fires `on_depart(node_id)` (set post-construction by the harness) so
+    survivors can `mark_departed` and re-level. The contribution it made
+    BEFORE leaving stays valid in any aggregate that already merged it —
+    departure removes future supply, not recorded history."""
+
+    role = ROLE_CHURNER
+
+    def __init__(self, *args, leave_after_s: float = 0.5, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.leave_after_s = leave_after_s
+        self.on_depart = None  # callable(node_id), wired by the harness
+        self.left = False
+        self._leave_handle: asyncio.TimerHandle | None = None
+
+    def start(self) -> None:
+        super().start()
+        self._leave_handle = asyncio.get_running_loop().call_later(
+            self.leave_after_s, self._depart
+        )
+
+    def _depart(self) -> None:
+        if self.left:
+            return
+        self.left = True
+        self._leave_handle = None
+        self.stop()
+        if self.on_depart is not None:
+            self.on_depart(self.id.id)
+
+    def stop(self) -> None:
+        if self._leave_handle is not None:
+            self._leave_handle.cancel()
+            self._leave_handle = None
+        super().stop()
+
+    def values(self) -> dict[str, float]:
+        return {**super().values(), "advLeftCt": float(self.left)}
+
+
 ADVERSARY_CLASSES = {
     ROLE_INVALID_SIGNER: InvalidSigner,
     ROLE_STALE_REPLAYER: StaleReplayer,
     ROLE_FLOODER: Flooder,
+    ROLE_CHURNER: Churner,
 }
 
 
@@ -249,15 +293,11 @@ def build_adversary(
     config=None,
     *,
     flood_pps: float = 200.0,
+    leave_after_s: float = 0.5,
 ):
     """Construct the adversarial node for `role` (Handel ctor signature,
     with the secret key in place of a pre-made own signature — the invalid
     signer forges its own)."""
-    if role == ROLE_CHURNER:
-        raise NotImplementedError(
-            "the churner role needs departures (Handel.mark_departed), not "
-            "ported to handel_tpu_torch yet (ROADMAP item 8 (6h))"
-        )
     cls = ADVERSARY_CLASSES.get(role)
     if cls is None:
         raise ValueError(f"unknown adversary role {role!r} (known: {ROLES})")
@@ -266,7 +306,11 @@ def build_adversary(
         if role == ROLE_INVALID_SIGNER
         else sk.sign(msg)
     )
-    kwargs = {"flood_pps": flood_pps} if role == ROLE_FLOODER else {}
+    kwargs = {}
+    if role == ROLE_FLOODER:
+        kwargs = {"flood_pps": flood_pps}
+    elif role == ROLE_CHURNER:
+        kwargs = {"leave_after_s": leave_after_s}
     return cls(
         network, registry, identity, constructor, msg, own_sig, config, **kwargs
     )

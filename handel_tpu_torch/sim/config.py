@@ -14,9 +14,8 @@ models/registry.py), `batch_size` (device launch width), `shared_verifier`
 
 The port parses and dumps the whole TOML format, byte for byte as the JAX
 package does, so every config of the repo loads. The dataclasses are data;
-the methods that build a part the port has not ported yet (stake weights
-and the simulated verify sleep) raise NotImplementedError naming its
-ROADMAP item.
+the method that builds a part the port has not ported yet (the simulated
+verify sleep) raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -390,11 +389,9 @@ class ScenarioParams:
         ).validate()
 
     def make_weights(self, n: int):
-        """The reference builds the stake weights (scenario/weights.py)."""
-        raise NotImplementedError(
-            "stake weights are not ported yet: scenario/weights.py and "
-            "the weighted threshold (ROADMAP item 8, 6h)"
-        )
+        from handel_tpu_torch.scenario.weights import make_weights
+
+        return make_weights(self.weight_profile, n, seed=self.weight_seed)
 
     def weight_threshold(self, count_threshold: int, n: int, weights) -> float:
         total = float(sum(weights))

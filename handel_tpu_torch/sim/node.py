@@ -34,9 +34,15 @@ spans with its region, `[chaos]` wraps each node's transport in a seeded
 `metrics = true` with `--metrics-port` serves /metrics, /healthz, /readyz
 and /debug/profile (core/metrics.py, parallel/telemetry.py).
 
+`[scenario]`'s stake weights set each node's weights and weighted
+threshold, and `[runs.adversaries] churner = K` seats churners that leave
+after `churn_after_ms` and tell their co-located survivors
+(`Handel.mark_departed`); survivors in other processes see the departure
+as silence, as in the reference.
+
 Cut from the reference, each raising NotImplementedError naming its ROADMAP
-item (`check_ported`): the comparison baselines, the churner role, stake
-weights and a mesh wider than one device.
+item (`check_ported`): the comparison baselines and a mesh wider than one
+device.
 The node ignores `[service]`, as the reference's does: its `batch_check` is
 for the `serve` and `load` paths, and a node's verifier checks per
 candidate.
@@ -47,7 +53,8 @@ the whole process and between the START and END barriers, B1's launches by
 column count, its peak device memory, whether it initialised CUDA at all,
 the calls and seconds of the store's device combines, which run on the
 event loop beside the service's dispatches, and its shared verifier's
-launches. Its nodes stay in the round until the END barrier
+launches, and under `weighted` the stake gate, each honest node's final
+stake and the departures it marked. Its nodes stay in the round until the END barrier
 (`serve_until_end`, ROADMAP §C deviation 5).
 """
 
@@ -82,20 +89,16 @@ from handel_tpu_torch.sim.monitor import CounterIO, HistogramIO, Sink, TimeMeasu
 from handel_tpu_torch.sim.sync import STATE_END, STATE_START, SyncSlave
 
 MSG = b"handel-tpu simulation message"
+# how long a verifier-serving process waits, after the END barrier, for its
+# RPC clients to close their links before it stops serving (C4)
+RPC_CLIENTS_CLOSE_S = 10.0
 
 
 def check_ported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for the first part of `cfg` that the port
     does not have yet, naming its ROADMAP item."""
-    run_parts = [
-        (r.adversaries.counts().get(ROLE_CHURNER, 0) > 0,
-         "the churner role ([runs.adversaries] churner)", "8 (6h)")
-        for r in cfg.runs
-    ]
     parts = [
         (bool(cfg.baseline), f"baseline = {cfg.baseline!r}", "9"),
-        *run_parts,
-        (cfg.scenario.weights_enabled(), "stake weights", "8 (6h)"),
         (cfg.mesh_devices > 1, f"mesh_devices = {cfg.mesh_devices}", "7"),
     ]
     for on, what, item in parts:
@@ -266,10 +269,16 @@ async def run_node_process(args) -> int:
     records = simkeys.read_registry_csv(args.registry)
     registry = simkeys.registry_from_records(records, scheme)
 
-    # WAN scenario plane: geo placement, derived identically in every
-    # process from the shared TOML
+    # WAN scenario plane: geo placement, stake weights and the weighted
+    # threshold, derived identically in every process from the shared TOML
     scen = cfg.scenario
     geo_base = scen.geo_config() if scen.geo_enabled() else None
+    weights = scen.make_weights(run.nodes) if scen.weights_enabled() else None
+    weight_threshold = (
+        scen.weight_threshold(threshold, run.nodes, weights)
+        if weights is not None
+        else 0.0
+    )
 
     # byzantine roles (sim/adversary.py): recompute the allocator's offline
     # set locally so every process derives the SAME id -> role mapping
@@ -280,7 +289,14 @@ async def run_node_process(args) -> int:
         )
         offline = {nid for nid, slot in alloc.items() if not slot.active}
         roles = adversary_roles(run.adversaries.counts(), run.nodes, offline)
-        check_threshold_reachable(threshold, run.nodes, run.failing, roles)
+        check_threshold_reachable(
+            threshold,
+            run.nodes,
+            run.failing,
+            roles,
+            weights=weights,
+            weight_threshold=weight_threshold,
+        )
 
     # one transport per logical node, bound to its registry address
     handels = []
@@ -370,6 +386,9 @@ async def run_node_process(args) -> int:
         hconf.recorder = recorder
         if geo_base is not None:
             hconf.region = geo_base.region_of(nid)
+        if weights is not None:
+            hconf.weights = weights
+            hconf.weight_threshold = weight_threshold
         if shared_service is not None:
             hconf.verifier = shared_service.verify
         elif rpc_client is not None:
@@ -385,6 +404,7 @@ async def run_node_process(args) -> int:
                 sk,
                 hconf,
                 flood_pps=run.adversaries.flood_pps,
+                leave_after_s=run.adversaries.churn_after_ms / 1000.0,
             )
         else:
             h = Handel(
@@ -397,6 +417,24 @@ async def run_node_process(args) -> int:
                 hconf,
             )
         handels.append((nid, h, net))
+
+    # churn: a departing node notifies its co-located survivors directly
+    # (Handel.mark_departed -> re-level + threshold re-evaluation).
+    # Survivors in other processes see the departure as silence, exactly
+    # like a `failing` node: the callback is a process-local accelerant,
+    # not a consensus channel.
+    churners = [h for _, h, _ in handels if getattr(h, "role", None) == ROLE_CHURNER]
+    if churners:
+        survivors = [h for _, h, _ in handels]
+
+        def _on_depart(departed_id: int, _peers=survivors) -> None:
+            for p in _peers:
+                md = getattr(p, "mark_departed", None)
+                if md is not None:
+                    md(departed_id)
+
+        for ch in churners:
+            ch.on_depart = _on_depart
 
     # registry-backed scrape surfaces: every logical node's protocol (sigs),
     # transport (net) and peer-penalty planes under a node label, the
@@ -461,6 +499,9 @@ async def run_node_process(args) -> int:
         h.start()
 
     ok = True
+    # each final's stake (its cardinality on a count run), for the kernels
+    # line below
+    final_stakes: dict[int, float] = {}
 
     def on_finals(finals_by_nid):
         nonlocal ok
@@ -469,6 +510,11 @@ async def run_node_process(args) -> int:
                 for meas in m:
                     meas.record()
             ms = finals_by_nid.get(nid)
+            if ms is not None:
+                final_stakes[nid] = (
+                    ms.bitset.weight_sum(weights) if weights is not None
+                    else float(ms.cardinality())
+                )
             if ms is not None and not verify_multisignature(
                 MSG, ms, registry, scheme.constructor
             ):
@@ -488,14 +534,20 @@ async def run_node_process(args) -> int:
     # batch-plane record and the trace dump, so that both hold the same
     # launches (a launch still in flight would land between them). A
     # verifier-serving process answers other processes' RPC batches until
-    # here. The master's monitor stays up until it has collected the
-    # process exits, so this record still lands
+    # here, and keeps their links open until their clients have recorded
+    # and closed them (ROADMAP §C C4). The master's monitor stays up until
+    # it has collected the process exits, so this record still lands
     if rpc_server is not None:
         rpc_server.stop()
+        await rpc_server.wait_clients_closed(RPC_CLIENTS_CLOSE_S)
     if shared_service is not None:
         shared_service.stop()
     if device_meas is not None:
         device_meas.record()
+    if rpc_client is not None:
+        # after its record, so that the serving process's exit cannot put
+        # a link error on it; the server waits for this close
+        rpc_client.stop()
     if recorder is not None:
         recorder.dump(
             os.path.join(args.trace_dir, f"trace_{ids[0] if ids else 0}.json")
@@ -506,8 +558,6 @@ async def run_node_process(args) -> int:
         if cfg.metrics_linger_s > 0:
             await asyncio.sleep(cfg.metrics_linger_s)
         mserver.stop()
-    if rpc_client is not None:
-        rpc_client.stop()
     if device_scheme:
         import torch
 
@@ -530,6 +580,17 @@ async def run_node_process(args) -> int:
             "verifier_launches": (
                 shared_service.launches if shared_service is not None else None
             ),
+            # the weighted gate (None on a count run), each honest node's
+            # final stake and the departures it marked (its process's
+            # churners)
+            "weighted": {
+                "gate": weight_threshold if weights is not None else None,
+                "final_stakes": {str(k): v for k, v in sorted(final_stakes.items())},
+                "departures": {
+                    str(nid): len(h.departed) for nid, h, _ in handels
+                    if getattr(h, "role", None) is None
+                },
+            },
         }, sort_keys=True), flush=True)
     for s in slaves:
         s.stop()

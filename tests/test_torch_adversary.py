@@ -103,9 +103,41 @@ def test_flood_packets_match(level):
         assert a._flood_packet(level).encode() == b._flood_packet(level).encode()
 
 
+def churner_departure(cls):
+    """An 8-node round whose node 7 is a churner leaving at once (its timer
+    fires on the loop's first pass, before any packet lands): what the
+    churner and the survivors record of the departure."""
+
+    async def go():
+        cl = cls(8, adversaries={7: "churner"}, churn_after_s=0.0)
+        ch = cl.adversaries[7]
+        assert (ch.role, ch.left, ch.leave_after_s, ch.on_depart is not None) == \
+            ("churner", False, 0.0, True)
+        cl.start()
+        try:
+            finals = await cl.wait_complete_success(timeout=30)
+        finally:
+            cl.stop()
+        return (
+            ch.left, ch.values()["advLeftCt"], ch.done,
+            sorted({frozenset(h.departed) for h in cl.handels.values()}, key=sorted),
+            {h.values()["departedCt"] for h in cl.handels.values()},
+            {h.values()["thresholdUnreachableCt"] for h in cl.handels.values()},
+            sorted(finals), cl.threshold,
+            all(f.cardinality() >= cl.threshold for f in finals.values()),
+        )
+
+    return asyncio.run(go())
+
+
 def test_churner_and_unknown_roles_raise():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8\b"):
-        LocalCluster(8, adversaries={7: "churner"})
+    """The churner role is ported: its departure is the reference's (it
+    leaves, stops, and every survivor marks it, the threshold still
+    reachable); an unknown role and a malformed planet still raise."""
+    ours = churner_departure(LocalCluster)
+    assert ours == churner_departure(JLocalCluster)
+    assert ours[:6] == (True, 1.0, True, [frozenset({7})], {1.0}, {0.0})
+    assert ours[6] == list(range(7)) and ours[8]
     with pytest.raises(ValueError, match="unknown adversary role"):
         LocalCluster(8, adversaries={7: "bogus"})
     # a malformed planet is refused before any node is built, as in the

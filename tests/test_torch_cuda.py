@@ -973,3 +973,127 @@ def test_size_changing_rotation_on_card_matches_the_cpu_engine(card):
 
     reqs = [cand(range(0, 7)), cand([2, 3, 5, 8, 11]), cand(range(4, 9), forge=True)]
     assert eng.batch_verify(b"m", reqs) == cpu.batch_verify(b"m", reqs) == [True, True, False]
+
+
+# -- stake weights and departures (chip_smoke.py phase 15) ---------------------
+
+
+def _weighted_round_on(device, n: int, batch: int):
+    """A weighted, churning n-node round through one
+    BatchVerifierService(fallback=None) over a BN254TorchScheme engine on
+    `device`: pareto stake (seed 7) gated at 0.55 of it, the highest id a
+    churner leaving at once. Every batch the nodes send the service is
+    logged with its verdicts; after the round one forged candidate (node
+    0's signature over another message) goes through the same service and
+    is logged last. Returns the finals' stakes, the departures each
+    survivor marked, the gate, the service's values, B1's launches in the
+    round, the log, the message and the public keys."""
+    import asyncio
+    from types import SimpleNamespace
+
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.core.config import Config
+    from handel_tpu_torch.core.crypto import verify_multisignature
+    from handel_tpu_torch.core.test_harness import LocalCluster
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.models.bn254 import BN254Scheme
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+    from handel_tpu_torch.scenario.weights import make_weights
+    from handel_tpu_torch.sim.adversary import forged_signature
+
+    w = make_weights("pareto", n, seed=7)
+    gate = 0.55 * sum(w)
+    scheme = BN254TorchScheme(batch_size=batch, device=device)
+    log = []
+
+    async def go():
+        engine = scheme.constructor.prepare(LocalCluster(n, scheme=scheme).registry.public_keys())
+        svc = BatchVerifierService(engine, max_delay_ms=1.0, fallback=None)
+
+        async def logged(msg, pubkeys, requests):
+            verdicts = await svc.verify(msg, pubkeys, requests)
+            log.append((list(requests), list(verdicts)))
+            return verdicts
+
+        def factory(i):
+            c = Config()
+            c.verifier = logged
+            c.rand = random.Random(1 + i)
+            c.weights = w
+            c.weight_threshold = gate
+            return c
+
+        cluster = LocalCluster(n, scheme=scheme, config_factory=factory,
+                               adversaries={n - 1: "churner"}, churn_after_s=0.0,
+                               verifier_service=svc)
+        before = mont_mul.launches
+        cluster.start()
+        try:
+            finals = await cluster.wait_complete_success(timeout=600.0)
+            b1 = mont_mul.launches - before
+            bs = BitSet(n)
+            bs.set(0, True)
+            forged = forged_signature(scheme.keygen(0)[0], cluster.msg)
+            await logged(cluster.msg, cluster.registry.public_keys(), [(bs, forged)])
+        finally:
+            cluster.stop()
+            svc.stop()
+        return cluster, finals, svc.values(), b1
+
+    cluster, finals, values, b1 = asyncio.run(go())
+    host = BN254Scheme().constructor
+    assert all(verify_multisignature(cluster.msg, f, cluster.registry, host)
+               for f in finals.values())
+    return SimpleNamespace(
+        stakes={i: f.bitset.weight_sum(w) for i, f in sorted(finals.items())},
+        departed={i: sorted(h.departed) for i, h in sorted(cluster.handels.items())},
+        gate=gate, values=values, b1=b1, log=log, msg=cluster.msg,
+        pks=cluster.registry.public_keys())
+
+
+def _replayed(run, constructor):
+    """`run`'s logged batches through another constructor, batch by batch."""
+    return [constructor.batch_verify(run.msg, run.pks, reqs) for reqs, _ in run.log]
+
+
+def test_weighted_churning_round_on_the_card_engine(card):
+    """8 nodes on the card engine: every survivor's final verifies on the
+    host oracle and clears the stake gate, every survivor marked the
+    churner, B1 launched, no failover or retry; every verdict the card gave
+    in the round equals the host oracle's on the same candidates, and the
+    forged candidate is rejected."""
+    from handel_tpu_torch.models.bn254 import BN254Scheme
+
+    run = _weighted_round_on(card, 8, 8)
+    assert sorted(run.stakes) == list(range(7))
+    assert all(s >= run.gate for s in run.stakes.values())
+    assert run.departed == {i: [7] for i in range(7)}
+    assert run.values["failoverBatches"] == run.values["deviceRetryCt"] == 0.0
+    assert run.values["verifierLaunches"] >= 1 and run.b1 > 0
+    card_verdicts = [v for _, v in run.log]
+    assert card_verdicts[-1] == [False] and any(v == [True] for v in card_verdicts[:-1])
+    assert _replayed(run, BN254Scheme().constructor) == card_verdicts
+
+
+def test_weighted_churning_round_on_card_matches_the_cpu_engine(card):
+    """The same 4-node round on the card and on the CPU engine: the same
+    gate and departures, every final over the gate on both; the card's
+    round's batches replayed through the CPU engine and the host oracle
+    give the card's verdicts one for one, the forgery rejected by all
+    three."""
+    from handel_tpu_torch.models.bn254 import BN254Scheme
+    from handel_tpu_torch.models.bn254_torch import BN254TorchScheme
+
+    ours = _weighted_round_on(card, 4, 4)
+    cpu = _weighted_round_on("cpu", 4, 4)
+    assert ours.gate == cpu.gate and ours.departed == cpu.departed == {i: [3] for i in range(3)}
+    assert sorted(ours.stakes) == sorted(cpu.stakes) == [0, 1, 2]
+    assert all(s >= ours.gate for s in [*ours.stakes.values(), *cpu.stakes.values()])
+    assert ours.b1 > 0 and cpu.b1 == 0
+    card_verdicts = [v for _, v in ours.log]
+    assert card_verdicts[-1] == [False]
+    cpu_engine = BN254TorchScheme(batch_size=4, device="cpu").constructor
+    assert _replayed(ours, cpu_engine) == card_verdicts
+    assert _replayed(ours, BN254Scheme().constructor) == card_verdicts
+    assert [v for _, v in cpu.log] == _replayed(cpu, BN254Scheme().constructor)

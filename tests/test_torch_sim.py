@@ -495,9 +495,12 @@ def unported(edit):
 
 UNPORTED = {
     "baseline": (lambda c: setattr(c, "baseline", "gossipsub"), "9"),
-    "churner": (lambda c: setattr(c.runs[0].adversaries, "churner", 1), "8"),
-    "weights": (lambda c: setattr(c.scenario, "weight_profile", "linear"), "8"),
     "mesh_devices": (lambda c: setattr(c, "mesh_devices", 4), "7"),
+}
+# once refused by the node, now ported: stake weights and departures
+LIFTED = {
+    "churner": lambda c: setattr(c.runs[0].adversaries, "churner", 1),
+    "weights": lambda c: setattr(c.scenario, "weight_profile", "linear"),
 }
 
 
@@ -508,6 +511,19 @@ def test_each_unported_option_raises_naming_its_roadmap_item(part):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         check_ported(cfg)
     check_ported(pconfig.SimConfig(runs=[pconfig.RunConfig()]))  # the base run passes
+
+
+@pytest.mark.parametrize("part", sorted(LIFTED))
+def test_lifted_options_pass_the_node_check(part, tmp_path):
+    """The churner role and stake weights run in the port's node: the
+    check passes, and the config dumps to the same text in both
+    packages."""
+    cfg = unported(LIFTED[part])
+    check_ported(cfg)
+    text = pconfig.dump_config(cfg)
+    path = tmp_path / "lifted.toml"
+    path.write_text(text)
+    assert rconfig.dump_config(rconfig.load_config(str(path))) == text
 
 
 def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_path):
@@ -532,30 +548,50 @@ def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_
     assert scheme.constructor.batch_check == "per_candidate"
 
 
-@pytest.mark.parametrize(
-    "method, item",
-    [("sleep", "8"), ("make_weights", "8")],
-)
+@pytest.mark.parametrize("method, item", [("sleep", "8")])
 def test_unported_config_methods_name_their_roadmap_item(method, item):
-    if method == "sleep":
-        call = lambda: pconfig.HandelParams(unsafe_sleep_verify_ms=5).to_config(3, 1)  # noqa: E731
-    else:
-        call = lambda: pconfig.ScenarioParams(weight_profile="linear").make_weights(8)  # noqa: E731
+    call = lambda: pconfig.HandelParams(unsafe_sleep_verify_ms=5).to_config(3, 1)  # noqa: E731
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         call()
     with pytest.raises(ValueError, match="unknown evaluator"):
         pconfig.HandelParams(evaluator="bogus").to_config(3, 1)
 
 
-@pytest.mark.parametrize(
-    "sub", ["swarm", "soak", "load", "scenario"]
-)
-def test_unported_subcommands_exit_non_zero_naming_their_item(sub, monkeypatch, capsys):
-    from handel_tpu_torch.sim.__main__ import main
+@pytest.mark.parametrize("profile", ["count", "linear", "pareto", "split"])
+def test_scenario_make_weights_matches_the_reference(profile):
+    """`ScenarioParams.make_weights` (a refusal until stake weights were
+    ported) gives the reference's weights float for float, and the same
+    weighted threshold."""
+    ours = pconfig.ScenarioParams(weight_profile=profile, weight_seed=7)
+    theirs = rconfig.ScenarioParams(weight_profile=profile, weight_seed=7)
+    w = ours.make_weights(32)
+    assert w == theirs.make_weights(32)
+    assert ours.weight_threshold(17, 32, w) == theirs.weight_threshold(17, 32, w)
 
+
+@pytest.mark.parametrize("sub", ["swarm"])
+def test_unported_subcommands_exit_non_zero_naming_their_item(sub, monkeypatch, capsys):
+    from handel_tpu_torch.sim.__main__ import NOT_PORTED, main
+
+    assert set(NOT_PORTED) == {"swarm"}
     monkeypatch.setattr(sys, "argv", ["sim", sub, "x.toml"])
     assert main() != 0
     assert "ROADMAP item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("sub", ["soak", "load", "scenario"])
+def test_ported_subcommands_parse_their_own_arguments(sub, monkeypatch, capsys):
+    """`soak`, `load` and `scenario` are no longer refused: each parses its
+    own arguments, as the reference's does (an unknown positional is an
+    argparse error, exit 2, naming the subcommand's program)."""
+    from handel_tpu_torch.sim.__main__ import main
+
+    monkeypatch.setattr(sys, "argv", ["sim", sub, "x.toml"])
+    with pytest.raises(SystemExit) as e:
+        main()
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert f"handel_tpu_torch.sim {sub}" in err and "ROADMAP" not in err
 
 
 # -- localhost runs --------------------------------------------------------
