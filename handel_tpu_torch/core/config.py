@@ -10,15 +10,13 @@ DefaultUpdateCount=1, config.go:87-97), merge-with-default (:128-165), and
 Beyond the reference: `batch_size` (max signatures per device verify
 launch), `verifier` (an async batch verifier in place of the scheme's own
 `batch_verify`), the peer-penalty and flood bounds, and the service's
-`session` and `epoch` with its `new_scorer` (service/session.py).
-Fields of the JAX package's Config that serve planes the port has not
-ported yet (the windowed store and the simulated verify sleep) are not
-here, nor are its factory hooks that no caller of the port
-sets (bitset and partitioner factories, and the peer-penalty switch): a
-node always builds `BitSet` and `BinomialPartitioner`. The evaluator and
-processing factories (the sim's `evaluator = "eval1"` / `"fifo"`) and
-the geo plane's `region` tag are here. Every field here has the JAX
-package's default.
+`session` and `epoch` with its `new_scorer` (service/session.py), and the
+swarm's `new_store` (swarm/vnode.py). The JAX package's bitset and
+partitioner factories are not here, since no caller of either package
+sets them: a node always builds `BitSet` and `BinomialPartitioner`. Nor
+are its `penalize_peers` switch (the swarm passes a `new_scorer` that
+returns None instead) and its simulated verify sleep, which only tests
+set. Every field here has the JAX package's default.
 """
 
 from __future__ import annotations
@@ -67,6 +65,11 @@ class Config:
     # BatchProcessing. FifoProcessing gives the reference's deprecated
     # arrival-order strategy for A/B runs (processing.go:380-493)
     new_processing: Optional[Callable] = None
+    # signature-store class (SignatureStore ctor signature); None =
+    # SignatureStore. The swarm runtime passes WindowedSignatureStore so
+    # completed levels retire their individual-sig structures and memory
+    # stays O(active levels) per identity (core/store.py)
+    new_store: Optional[Callable] = None
 
     logger: Logger = DEFAULT_LOGGER
     # entropy for per-level candidate shuffling (config.go:55)
@@ -75,9 +78,10 @@ class Config:
     disable_shuffling: bool = False
 
     # -- byzantine hardening ----------------------------------------------
-    # (handel, ) -> PeerScorer; None builds a PeerScorer with the default
-    # thresholds (core/penalty.py). The service's sessions share one
-    # scorer per session (SessionScorers)
+    # (handel, ) -> PeerScorer or None; None builds a PeerScorer with the
+    # default thresholds (core/penalty.py). The service's sessions share
+    # one scorer per session (SessionScorers); the swarm's honest vnodes
+    # return None, which turns peer accounting off
     new_scorer: Optional[Callable] = None
     # cap on queued unverified candidates per node; beyond it the OLDEST
     # pending candidate is dropped, so a flooder bounds host memory instead

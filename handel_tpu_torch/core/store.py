@@ -24,7 +24,7 @@ from collections import OrderedDict
 from hashlib import blake2b
 from typing import Callable
 
-from handel_tpu_torch.core.bitset import BitSet
+from handel_tpu_torch.core.bitset import AllOnesBitSet, BitSet
 from handel_tpu_torch.core.crypto import Constructor, MultiSignature
 from handel_tpu_torch.core.partitioner import BinomialPartitioner, IncomingSig
 
@@ -409,3 +409,72 @@ class SignatureStore:
             "replaceTrial": float(self.replace_trial),
         }
 
+
+class WindowedSignatureStore(SignatureStore):
+    """SignatureStore whose completed levels RETIRE (the swarm's store).
+
+    The plain store keeps every level's individual-sig structures for
+    the whole run — per identity that is Σ size_of(level) ≈ N bits of
+    verified-individual bitsets plus up to N stored individual sigs, i.e.
+    O(N) per identity and O(N²) across a co-resident swarm committee. Once a
+    level is receive-complete nothing at that level can improve (the best
+    already covers the full candidate range), so `retire_level`:
+
+    - drops the level's `indiv_verified` bitset and `individual_sigs` dict
+      (the only O(level size) state), and
+    - compacts the complete best's dense bitset to `AllOnesBitSet` — the
+      best AGGREGATE itself is never dropped; `combined()` and
+      `full_signature()` keep reading it through `best_by_level`.
+
+    Contributions arriving for a retired level afterwards (gossip
+    re-deliveries racing the completion, or stale peers) are
+    counted-and-ignored: `staleRetiredCt` in the reporter surface, zero
+    score, zero store mutation. Memory per identity is then O(active
+    levels), not O(N) — the property the 65k-committee run depends on.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.retired: set[int] = set()
+        self.stale_retired_ct = 0
+
+    def retire_level(self, level: int) -> None:
+        """Free the level's individual-sig window; keep (and compact) the
+        best aggregate. Idempotent."""
+        if level in self.retired:
+            return
+        self.retired.add(level)
+        self.indiv_verified.pop(level, None)
+        self.individual_sigs.pop(level, None)
+        best = self.best_by_level.get(level)
+        if (
+            best is not None
+            and not isinstance(best.bitset, AllOnesBitSet)
+            and best.cardinality() == len(best.bitset)
+        ):
+            self.best_by_level[level] = MultiSignature(
+                AllOnesBitSet(len(best.bitset)), best.signature
+            )
+            self._gen += 1  # cached combinations reference the old object
+
+    def evaluate(self, sp: IncomingSig) -> int:
+        if sp.level in self.retired:
+            self.stale_retired_ct += 1
+            return 0
+        return super().evaluate(sp)
+
+    def store(self, sp: IncomingSig) -> MultiSignature | None:
+        if sp.level in self.retired:
+            # a candidate verified before the level completed, landing
+            # after: the level's window is gone and the best already covers
+            # it — count, ignore, return the standing best
+            self.stale_retired_ct += 1
+            return self.best_by_level.get(sp.level)
+        return super().store(sp)
+
+    def values(self) -> dict[str, float]:
+        return {
+            **super().values(),
+            "staleRetiredCt": float(self.stale_retired_ct),
+            "retiredLevelCt": float(len(self.retired)),
+        }

@@ -13,8 +13,8 @@ The port's device schemes are `bn254-cuda` (alias `bn256-cuda`) and
 (`bn254-jax`, `bn254-tpu` and `bn256-tpu` the first; `bls12-381-jax`,
 `bls12-381-tpu` and `bls12381-jax` the second), so that the repo's
 `results/*_device.toml` configs run unchanged. `bls12-381` and `bls12381`
-name the host scheme. The EdDSA names are known but not ported yet: they
-raise a ValueError that names their ROADMAP item.
+name the host scheme, and `eddsa` and `ed25519` the pure-Python Ed25519
+control group (models/eddsa.py).
 """
 
 from __future__ import annotations
@@ -50,16 +50,10 @@ def _bls12_381_cuda(**kw):
     return BLS12381TorchScheme(**kw)
 
 
-def _not_ported(what: str, item: int):
-    def factory(**kw):
-        raise ValueError(
-            f"{what} is not ported to handel_tpu_torch yet (ROADMAP item {item})"
-        )
+def _eddsa(**kw):
+    from handel_tpu_torch.models.eddsa import EdDSAScheme
 
-    return factory
-
-
-_eddsa = _not_ported("EdDSA", 9)
+    return EdDSAScheme()
 
 # alias -> (is_device_scheme, factory)
 _TABLE = {
@@ -89,6 +83,18 @@ def new_scheme(name: str, **kwargs):
     if entry is None:
         raise ValueError(f"unknown signature scheme: {name!r}")
     return entry[1](**kwargs)
+
+
+def host_scheme_name(name: str) -> str:
+    """The host scheme that shares `name`'s keys and signatures: `bn254`
+    for a BN254 device name, `bls12-381` for a BLS12-381 one, and `name`
+    itself for a host scheme. The sim's baselines verify on the host, so a
+    device scheme's baseline run builds this one and holds no card state
+    (ROADMAP §C, deviation 8)."""
+    entry = _TABLE.get(name.lower())
+    if entry is None:
+        raise ValueError(f"unknown signature scheme: {name!r}")
+    return {_bn254_cuda: "bn254", _bls12_381_cuda: "bls12-381"}.get(entry[1], name)
 
 
 def is_device_scheme(name: str) -> bool:

@@ -12,14 +12,16 @@ Usage: python -m handel_tpu_torch.sim --config sim.toml --workdir out/
        python -m handel_tpu_torch.sim soak                (lifecycle soak proof)
        python -m handel_tpu_torch.sim load                (open-loop federation load)
        python -m handel_tpu_torch.sim scenario --config s.toml   (WAN scenario)
+       python -m handel_tpu_torch.sim swarm s.toml        (virtual-node swarm)
 
 The node processes run their device scheme on the card unless
 HANDEL_TORCH_DEVICE=cpu (utils/torchenv.py). `serve` runs its sessions on
 the fake or a host scheme and refuses a device scheme, as the reference
-does (service/driver.py run_in_process); `soak`, `load` and `scenario` run
-on the fake scheme and host devices, as the reference's do, and read no
-scheme from the TOML. `swarm` is not ported yet: it exits non-zero naming
-its ROADMAP item.
+does (service/driver.py run_in_process); `soak`, `load`, `scenario` and
+`swarm` run on the fake scheme and host devices, as the reference's do, and
+read no scheme from the TOML. A baseline run (`baseline = "nsquare"` or
+`"gossipsub"`) verifies on the host with the scheme's own `verify`, as the
+reference's does, whatever scheme the TOML names.
 """
 
 from __future__ import annotations
@@ -31,12 +33,6 @@ import sys
 
 from handel_tpu_torch.sim.config import load_config
 from handel_tpu_torch.sim.platform import run_simulation
-
-#: subcommand -> ROADMAP item that ports it
-NOT_PORTED = {
-    "swarm": "8 (swarm/)",
-}
-
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "trace":
@@ -147,6 +143,20 @@ def main() -> int:
         )
         print(json.dumps(report))
         return 0 if report["ok"] else 1
+    if len(sys.argv) > 1 and sys.argv[1] == "swarm":
+        # virtual-node swarm subcommand (swarm/driver.py): run the [swarm]
+        # TOML section's N identities as cooperative vnodes multiplexed
+        # over a few event-loop processes
+        wap = argparse.ArgumentParser(prog="python -m handel_tpu_torch.sim swarm")
+        wap.add_argument("config")
+        wap.add_argument("--workdir", default="swarm_out")
+        wargs = wap.parse_args(sys.argv[2:])
+        from handel_tpu_torch.swarm.driver import run_swarm
+
+        cfg = load_config(wargs.config)
+        summary = asyncio.run(run_swarm(cfg, wargs.workdir, wargs.config))
+        print(json.dumps(summary))
+        return 0 if summary["ok"] else 1
     if len(sys.argv) > 1 and sys.argv[1] == "scenario":
         # WAN scenario subcommand (scenario/engine.py): run the [scenario]
         # TOML section's composed geo/churn/weights run in one process and
@@ -167,14 +177,6 @@ def main() -> int:
         report = asyncio.run(run_scenario(cfg, zargs.workdir))
         print(json.dumps(report))
         return 0 if report["ok"] else 1
-    if len(sys.argv) > 1 and sys.argv[1] in NOT_PORTED:
-        sub = sys.argv[1]
-        print(
-            f"python -m handel_tpu_torch.sim {sub}: not ported yet "
-            f"(ROADMAP item {NOT_PORTED[sub]})",
-            file=sys.stderr,
-        )
-        return 2
     ap = argparse.ArgumentParser(prog="python -m handel_tpu_torch.sim")
     ap.add_argument("--config", required=True)
     ap.add_argument("--workdir", default="sim_out")

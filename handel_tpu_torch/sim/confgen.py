@@ -11,11 +11,9 @@ device path ("bn254-jax", which the port's registry maps to its
 `bn254-cuda` scheme, models/registry.py), `batch_size` the launch width,
 `shared_verifier` the fused many-node device service.
 
-The TOML text is the JAX package's, byte for byte, for every scenario. The
-port runs the node-count, threshold, failing, period, timeout,
-update-count, practical, evaluator and geo ones; the baselines, swarm,
-churn and stake-weight ones load but name their ROADMAP item when run
-(sim/node.py `check_ported`, sim/__main__.py `NOT_PORTED`).
+The TOML text is the JAX package's, byte for byte, for every scenario, and
+the port runs every one of them: the baselines through the sim (sim/node.py
+builds the gossip aggregators), the swarm through `sim swarm`.
 """
 
 from __future__ import annotations
@@ -199,7 +197,7 @@ def scenario_evaluator(nodes: int = 2000) -> SimConfig:
 
 
 def scenario_swarm(identities: int = 65536, processes: int = 1) -> SimConfig:
-    """Virtual-node swarm run (swarm/, not ported yet; `sim swarm`): identities
+    """Virtual-node swarm run (swarm/; `sim swarm`): identities
     beyond what per-node processes can carry, multiplexed as vnodes on a
     shared event loop. Gossip is set sparse — the in-memory router is
     lossless and the id-staggered fast-path cascade covers every level

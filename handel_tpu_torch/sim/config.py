@@ -14,8 +14,8 @@ models/registry.py), `batch_size` (device launch width), `shared_verifier`
 
 The port parses and dumps the whole TOML format, byte for byte as the JAX
 package does, so every config of the repo loads. The dataclasses are data;
-the method that builds a part the port has not ported yet (the simulated
-verify sleep) raises NotImplementedError naming its ROADMAP item.
+`HandelParams.to_config` refuses the simulated verify sleep, which the
+port leaves out.
 """
 
 from __future__ import annotations
@@ -48,8 +48,9 @@ class HandelParams:
     def to_config(self, threshold: int, seed: int) -> Config:
         if self.unsafe_sleep_verify_ms:
             raise NotImplementedError(
-                "unsafe_sleep_verify_ms is not ported yet: "
-                "Config.unsafe_sleep_on_verify_ms (ROADMAP item 8, 6j)"
+                "unsafe_sleep_verify_ms is not ported: it replaces every "
+                "verification by a sleep and no config of the repo sets it "
+                "(ROADMAP §C, left out)"
             )
         c = Config()
         c.update_period = self.period_ms / 1000.0

@@ -1,6 +1,8 @@
 """Metrics plane: UDP JSON sink, measures, stats aggregation, CSV output —
-a copy of handel_tpu/sim/monitor.py without its swarm `Rollup` and the
-fleet roll-up route (both go with obs/, ROADMAP item 8).
+a copy of handel_tpu/sim/monitor.py without its fleet route
+(`Monitor(fleet=)`, the `{"rollup": ...}` datagrams it feeds and
+`Sink.record_rollup`), which nothing in either package calls: a rollup
+datagram here is dropped like any other datagram without a `name`.
 
 Reference: simul/monitor/ — nodes `ConnectSink` and push JSON measures
 (monitor.go:41-156, measure.go:33-229); the master aggregates per-key
@@ -372,3 +374,65 @@ class Stats:
                 w.writerow(self.columns())
             w.writerow([f"{v:.6g}" for v in self.row()])
 
+
+class Rollup:
+    """Hierarchical per-process metric rollup for the vnode swarm
+    (swarm/): 65,536 identities cannot each push a CounterIO
+    measure — the UDP sink and the CSV would drown — so each process folds
+    its vnodes' `values()` maps into ONE record: counters summed, gauges
+    averaged + maxed (the Stats.is_gauge classification), and a bounded
+    top-k of the SLOWEST vnodes by an externally supplied figure (time to
+    threshold), which is the per-vnode detail worth keeping at scale."""
+
+    def __init__(self, top_k: int = 16):
+        self.top_k = top_k
+        self._n = 0
+        self._counters: dict[str, float] = {}
+        self._gauge_sum: dict[str, float] = {}
+        self._gauge_max: dict[str, float] = {}
+        self._gauge_n: dict[str, int] = {}
+        self._heap: list[tuple[float, int]] = []  # min-heap of (slow, id)
+        self._unfinished = 0
+
+    def add(
+        self,
+        vnode_id: int,
+        values: Mapping[str, float],
+        gauge_keys: set[str] = frozenset(),
+        slow_value: float | None = None,
+    ) -> None:
+        import heapq
+
+        self._n += 1
+        for k, v in values.items():
+            if k in gauge_keys or k.endswith(CounterIO.GAUGE_SUFFIXES):
+                self._gauge_sum[k] = self._gauge_sum.get(k, 0.0) + v
+                self._gauge_n[k] = self._gauge_n.get(k, 0) + 1
+                if v > self._gauge_max.get(k, -math.inf):
+                    self._gauge_max[k] = v
+            else:
+                self._counters[k] = self._counters.get(k, 0.0) + v
+        if slow_value is None:
+            self._unfinished += 1
+        elif len(self._heap) < self.top_k:
+            heapq.heappush(self._heap, (slow_value, vnode_id))
+        elif slow_value > self._heap[0][0]:
+            heapq.heapreplace(self._heap, (slow_value, vnode_id))
+
+    def record(self) -> dict:
+        return {
+            "vnodes": self._n,
+            "unfinished": self._unfinished,
+            "counters": dict(sorted(self._counters.items())),
+            "gauges": {
+                k: {
+                    "mean": self._gauge_sum[k] / self._gauge_n[k],
+                    "max": self._gauge_max[k],
+                }
+                for k in sorted(self._gauge_sum)
+            },
+            "slowest": [
+                {"id": vid, "slow_s": s}
+                for s, vid in sorted(self._heap, reverse=True)
+            ],
+        }

@@ -40,9 +40,14 @@ after `churn_after_ms` and tell their co-located survivors
 (`Handel.mark_departed`); survivors in other processes see the departure
 as silence, as in the reference.
 
-Cut from the reference, each raising NotImplementedError naming its ROADMAP
-item (`check_ported`): the comparison baselines and a mesh wider than one
-device.
+`baseline = "nsquare"` or `"gossipsub"` runs the comparison protocols
+(baselines/) in place of Handel, as the reference's node does: each node
+verifies on arrival with the scheme's host `verify`, and the process builds
+no shared verifier, serves none and reads no device telemetry, whatever
+scheme the TOML names.
+
+Cut from the reference, raising NotImplementedError naming its ROADMAP item
+(`check_ported`): a mesh wider than one device.
 The node ignores `[service]`, as the reference's does: its `batch_check` is
 for the `serve` and `load` paths, and a node's verifier checks per
 candidate.
@@ -70,7 +75,11 @@ from handel_tpu_torch.core.crypto import verify_multisignature
 from handel_tpu_torch.core.handel import Handel
 from handel_tpu_torch.core.report import SUBGROUP_CHECKS, KernelTimer, ReportAggregator
 from handel_tpu_torch.core.trace import FlightRecorder
-from handel_tpu_torch.models.registry import is_device_scheme, new_scheme
+from handel_tpu_torch.models.registry import (
+    host_scheme_name,
+    is_device_scheme,
+    new_scheme,
+)
 from handel_tpu_torch.network.chaos import ChaosNetwork
 from handel_tpu_torch.network.encoding import CounterEncoding
 from handel_tpu_torch.network.quic import QUICNetwork
@@ -98,7 +107,6 @@ def check_ported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for the first part of `cfg` that the port
     does not have yet, naming its ROADMAP item."""
     parts = [
-        (bool(cfg.baseline), f"baseline = {cfg.baseline!r}", "9"),
         (cfg.mesh_devices > 1, f"mesh_devices = {cfg.mesh_devices}", "7"),
     ]
     for on, what, item in parts:
@@ -131,6 +139,11 @@ async def serve_until_end(handels, threshold, timeout_s, on_finals, end_barrier)
     Handel sends each signature to each peer once and re-sends only when
     it improves (core/handel.py `Level.active`).
     """
+    async def one_done(h):
+        if hasattr(h, "final_signatures"):  # Handel
+            return await h.final_signatures.get()
+        return await h.final  # gossip baseline
+
     honest = [
         (nid, h, net)
         for nid, h, net in handels
@@ -138,14 +151,14 @@ async def serve_until_end(handels, threshold, timeout_s, on_finals, end_barrier)
     ]
     try:
         finals = await asyncio.wait_for(
-            asyncio.gather(*(h.final_signatures.get() for _, h, _ in honest)),
+            asyncio.gather(*(one_done(h) for _, h, _ in honest)),
             timeout=timeout_s,
         )
     except asyncio.TimeoutError:
         # stall diagnostics: per-node progress is the only evidence a
         # multi-process deadlock leaves behind
         for nid, h, net in handels:
-            best = h.store.full_signature()
+            best = getattr(h, "store", None) and h.store.full_signature()
             card = best.cardinality() if best else 0
             vals = net.values()
             print(
@@ -221,7 +234,10 @@ async def run_node_process(args) -> int:
             pass
         print(f"metrics: serving on http://{mserver.address}", flush=True)
 
-    device_scheme = is_device_scheme(cfg.scheme)
+    # a baseline verifies every arrival on the host: a device scheme's
+    # baseline run builds its host counterpart (deviation 8)
+    scheme_name = host_scheme_name(cfg.scheme) if cfg.baseline else cfg.scheme
+    device_scheme = is_device_scheme(scheme_name)
     dev = None
     scheme_kw = {}
     if device_scheme:
@@ -244,7 +260,7 @@ async def run_node_process(args) -> int:
         }
         if args.verifier:
             scheme_kw.update(device="cpu", warmup=False)
-    scheme = new_scheme(cfg.scheme, **scheme_kw)
+    scheme = new_scheme(scheme_name, **scheme_kw)
     ids = [int(x) for x in args.ids.split(",") if x != ""]
     threshold = run.resolved_threshold()
 
@@ -309,7 +325,7 @@ async def run_node_process(args) -> int:
         # constructor's `device_combine` when it is built
         combine_timer = KernelTimer(scheme.constructor.device_combine, name="combine")
         scheme.constructor.device_combine = combine_timer
-    if args.verifier:
+    if args.verifier and not cfg.baseline:
         # a process without an engine: ship candidate batches to the card's
         # host instead of preparing a device (parallel/rpc_verifier.py)
         from handel_tpu_torch.parallel.rpc_verifier import RPCVerifier
@@ -317,7 +333,11 @@ async def run_node_process(args) -> int:
         rpc_client = RPCVerifier(args.verifier)
         if plane is not None:
             plane.add("rpc", rpc_client)
-    elif cfg.shared_verifier and hasattr(scheme.constructor, "Device"):
+    elif (
+        cfg.shared_verifier
+        and hasattr(scheme.constructor, "Device")
+        and not cfg.baseline
+    ):
         from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
 
         # prepare() builds the engine for the registry (and warms it), and
@@ -381,41 +401,70 @@ async def run_node_process(args) -> int:
             net = ChaosNetwork(net, cfg.chaos.for_node(nid))
         await net.start()
         sk = simkeys.secret_of(rec, scheme)
-        hconf = run.handel.to_config(threshold, seed=nid)
-        hconf.batch_size = cfg.batch_size
-        hconf.recorder = recorder
-        if geo_base is not None:
-            hconf.region = geo_base.region_of(nid)
-        if weights is not None:
-            hconf.weights = weights
-            hconf.weight_threshold = weight_threshold
-        if shared_service is not None:
-            hconf.verifier = shared_service.verify
-        elif rpc_client is not None:
-            hconf.verifier = rpc_client.verify
-        if nid in roles:
-            h = build_adversary(
-                roles[nid],
-                net,
-                registry,
-                registry.identity(nid),
-                scheme.constructor,
-                MSG,
-                sk,
-                hconf,
-                flood_pps=run.adversaries.flood_pps,
-                leave_after_s=run.adversaries.churn_after_ms / 1000.0,
+        if cfg.baseline:  # comparison protocols (simul/p2p shared binary)
+            from handel_tpu_torch.baselines.gossip import GossipAggregator
+            from handel_tpu_torch.baselines.gossipsub import GossipSubAggregator
+
+            agg_cls, kw = (
+                (GossipSubAggregator, {})
+                if cfg.baseline == "gossipsub"
+                else (
+                    GossipAggregator,
+                    # same recv/verify/merge spans as Handel, so baseline
+                    # traces compare like-for-like in the trace CLI
+                    {
+                        "connector": "full",
+                        "recorder": recorder,
+                        "trace_tid": nid,
+                    },
+                )
             )
-        else:
-            h = Handel(
+            h = agg_cls(
                 net,
                 registry,
                 registry.identity(nid),
                 scheme.constructor,
                 MSG,
                 sk.sign(MSG),
-                hconf,
+                threshold,
+                **kw,
             )
+        else:
+            hconf = run.handel.to_config(threshold, seed=nid)
+            hconf.batch_size = cfg.batch_size
+            hconf.recorder = recorder
+            if geo_base is not None:
+                hconf.region = geo_base.region_of(nid)
+            if weights is not None:
+                hconf.weights = weights
+                hconf.weight_threshold = weight_threshold
+            if shared_service is not None:
+                hconf.verifier = shared_service.verify
+            elif rpc_client is not None:
+                hconf.verifier = rpc_client.verify
+            if nid in roles:
+                h = build_adversary(
+                    roles[nid],
+                    net,
+                    registry,
+                    registry.identity(nid),
+                    scheme.constructor,
+                    MSG,
+                    sk,
+                    hconf,
+                    flood_pps=run.adversaries.flood_pps,
+                    leave_after_s=run.adversaries.churn_after_ms / 1000.0,
+                )
+            else:
+                h = Handel(
+                    net,
+                    registry,
+                    registry.identity(nid),
+                    scheme.constructor,
+                    MSG,
+                    sk.sign(MSG),
+                    hconf,
+                )
         handels.append((nid, h, net))
 
     # churn: a departing node notifies its co-located survivors directly
@@ -444,18 +493,21 @@ async def run_node_process(args) -> int:
         for nid, h, net in handels:
             lbl = {"node": str(nid)}
             mreg.register_values("sigs", h, labels=lbl)
-            mreg.register_histograms("sigs", h, labels=lbl)
+            if hasattr(h, "histograms"):
+                mreg.register_histograms("sigs", h, labels=lbl)
             mreg.register_values("net", net, labels=lbl)
             if hasattr(net, "histograms"):
                 mreg.register_histograms("net", net, labels=lbl)
-            mreg.register_values("penalty", h.scorer, labels=lbl)
+            scorer = getattr(h, "scorer", None)
+            if scorer is not None:
+                mreg.register_values("penalty", scorer, labels=lbl)
         if shared_service is not None:
             mreg.register_values("device_verifier", shared_service)
         if plane is not None:
             mreg.register_values("host", plane)
         if recorder is not None:
             mreg.register_values("trace", recorder)
-        if device_scheme:
+        if device_scheme and not cfg.baseline:
             from handel_tpu_torch.parallel.telemetry import DeviceTelemetry
 
             telemetry = DeviceTelemetry(
@@ -488,8 +540,12 @@ async def run_node_process(args) -> int:
     measures = []
     for nid, h, net in handels:
         if sink:
+            # Handel.values() carries the whole per-node plane (processing,
+            # store and penalty counters); a gossip baseline reports itself
             ms = [TimeMeasure(sink, "sigen"), CounterIO(sink, "net", net),
-                  CounterIO(sink, "sigs", h), HistogramIO(sink, "sigs", h)]
+                  CounterIO(sink, "sigs", h)]
+            if hasattr(h, "histograms"):
+                ms.append(HistogramIO(sink, "sigs", h))
             if hasattr(net, "histograms"):
                 # chaos/geo delay distribution -> net_delayMs_p50/_p90/_p99
                 ms.append(HistogramIO(sink, "net", net))
@@ -587,7 +643,7 @@ async def run_node_process(args) -> int:
                 "gate": weight_threshold if weights is not None else None,
                 "final_stakes": {str(k): v for k, v in sorted(final_stakes.items())},
                 "departures": {
-                    str(nid): len(h.departed) for nid, h, _ in handels
+                    str(nid): len(getattr(h, "departed", ())) for nid, h, _ in handels
                     if getattr(h, "role", None) is None
                 },
             },

@@ -25,7 +25,11 @@ import os
 import socket
 import sys
 
-from handel_tpu_torch.models.registry import is_device_scheme, new_scheme
+from handel_tpu_torch.models.registry import (
+    host_scheme_name,
+    is_device_scheme,
+    new_scheme,
+)
 from handel_tpu_torch.sim import keys as simkeys
 from handel_tpu_torch.sim.allocator import new_allocator
 from handel_tpu_torch.sim.config import SimConfig, dump_config
@@ -221,7 +225,9 @@ class LocalhostPlatform:
         run = cfg.runs[run_index]
         check_ported(cfg)
         scheme_kw = {}
-        if is_device_scheme(cfg.scheme):
+        # a baseline's nodes verify on the host (sim/node.py, deviation 8)
+        scheme_name = host_scheme_name(cfg.scheme) if cfg.baseline else cfg.scheme
+        if is_device_scheme(scheme_name):
             from handel_tpu_torch.utils.torchenv import device_type_from_env
 
             if device_type_from_env() == "cuda":
@@ -231,7 +237,7 @@ class LocalhostPlatform:
             # the parent only generates keys, which is host work: its scheme
             # holds no CUDA context while the node processes run
             scheme_kw = {"device": "cpu", "warmup": False}
-        scheme = new_scheme(cfg.scheme, **scheme_kw)
+        scheme = new_scheme(scheme_name, **scheme_kw)
 
         # ports: node addresses + master + monitor. With base_port set the
         # fixed plan applies (probing holds 2 fds per port simultaneously,

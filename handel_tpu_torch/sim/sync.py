@@ -11,10 +11,10 @@ Clock-offset piggyback: each READY carries the slave's send stamp
 `ts`; a direct ack echoes it plus the master's receive-side stamp `mts`. The
 slave then has a one-shot NTP-style sample — offset = mts - (ts + rtt/2),
 bounded by ±rtt/2 — and keeps the estimate from the smallest-RTT exchange.
-The reference's node copies the START-barrier estimate onto its flight
-recorder, which the port has not ported yet (ROADMAP item 4); the estimate
-is kept on each slave. Bulk release acks (wait_all) carry no `ts` and never
-update the estimate.
+`sim/node.py` copies the START-barrier estimate onto the flight recorder so
+`merge_traces` (core/trace.py) aligns multi-host timelines at export time,
+and a swarm worker (swarm/worker.py) does the same for its block's recorder.
+Bulk release acks (wait_all) carry no `ts` and never update the estimate.
 """
 
 from __future__ import annotations

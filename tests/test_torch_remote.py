@@ -87,8 +87,8 @@ def test_remote_platform_needs_hosts_and_names_the_platforms(tmp_path):
 
 def test_remote_platform_refuses_what_the_port_has_not_ported(tmp_path):
     cfg = remote_cfg(pconfig, tmp_path, "port")
-    cfg.baseline = "gossipsub"
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 9\b"):
+    cfg.mesh_devices = 4
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 7\b"):
         asyncio.run(p_run(cfg, str(tmp_path / "out"), platform="remote"))
 
 

@@ -441,8 +441,9 @@ REFERENCE_ALIASES = [
 def test_scheme_table_matches_the_reference(name):
     assert preg.is_device_scheme(name) == r_is_device(name)
     if name.startswith("ed"):
-        with pytest.raises(ValueError, match="ROADMAP item 9"):
-            preg.new_scheme(name)
+        from handel_tpu_torch.models.eddsa import EdDSAScheme
+
+        assert type(preg.new_scheme(name)) is EdDSAScheme
     elif name.startswith("bls"):
         from handel_tpu_torch.models.bls12_381 import BLS12381Scheme
         from handel_tpu_torch.models.bls12_381_torch import BLS12381TorchScheme
@@ -494,11 +495,12 @@ def unported(edit):
 
 
 UNPORTED = {
-    "baseline": (lambda c: setattr(c, "baseline", "gossipsub"), "9"),
     "mesh_devices": (lambda c: setattr(c, "mesh_devices", 4), "7"),
 }
-# once refused by the node, now ported: stake weights and departures
+# once refused by the node, now ported: stake weights and departures, and
+# the comparison baselines
 LIFTED = {
+    "baseline": lambda c: setattr(c, "baseline", "gossipsub"),
     "churner": lambda c: setattr(c.runs[0].adversaries, "churner", 1),
     "weights": lambda c: setattr(c.scenario, "weight_profile", "linear"),
 }
@@ -548,15 +550,6 @@ def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_
     assert scheme.constructor.batch_check == "per_candidate"
 
 
-@pytest.mark.parametrize("method, item", [("sleep", "8")])
-def test_unported_config_methods_name_their_roadmap_item(method, item):
-    call = lambda: pconfig.HandelParams(unsafe_sleep_verify_ms=5).to_config(3, 1)  # noqa: E731
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
-        call()
-    with pytest.raises(ValueError, match="unknown evaluator"):
-        pconfig.HandelParams(evaluator="bogus").to_config(3, 1)
-
-
 @pytest.mark.parametrize("profile", ["count", "linear", "pareto", "split"])
 def test_scenario_make_weights_matches_the_reference(profile):
     """`ScenarioParams.make_weights` (a refusal until stake weights were
@@ -569,24 +562,14 @@ def test_scenario_make_weights_matches_the_reference(profile):
     assert ours.weight_threshold(17, 32, w) == theirs.weight_threshold(17, 32, w)
 
 
-@pytest.mark.parametrize("sub", ["swarm"])
-def test_unported_subcommands_exit_non_zero_naming_their_item(sub, monkeypatch, capsys):
-    from handel_tpu_torch.sim.__main__ import NOT_PORTED, main
-
-    assert set(NOT_PORTED) == {"swarm"}
-    monkeypatch.setattr(sys, "argv", ["sim", sub, "x.toml"])
-    assert main() != 0
-    assert "ROADMAP item" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("sub", ["soak", "load", "scenario"])
+@pytest.mark.parametrize("sub", ["soak", "load", "scenario", "swarm"])
 def test_ported_subcommands_parse_their_own_arguments(sub, monkeypatch, capsys):
-    """`soak`, `load` and `scenario` are no longer refused: each parses its
-    own arguments, as the reference's does (an unknown positional is an
-    argparse error, exit 2, naming the subcommand's program)."""
+    """`soak`, `load`, `scenario` and `swarm` are no longer refused: each
+    parses its own arguments, as the reference's does (an unknown argument
+    is an argparse error, exit 2, naming the subcommand's program)."""
     from handel_tpu_torch.sim.__main__ import main
 
-    monkeypatch.setattr(sys, "argv", ["sim", sub, "x.toml"])
+    monkeypatch.setattr(sys, "argv", ["sim", sub, "x.toml", "--no-such-flag"])
     with pytest.raises(SystemExit) as e:
         main()
     assert e.value.code == 2
@@ -714,13 +697,13 @@ def test_device_scheme_without_a_card_fails_without_falling_back(tmp_path, monke
 
 
 def test_a_failing_node_process_fails_the_run_at_once(tmp_path):
-    """A node that exits non-zero (here: the simulated verify sleep, which
-    the port has not ported) ends the run without waiting out
-    max_timeout_s."""
+    """A node that exits non-zero (here: an evaluator name no node knows,
+    refused by `HandelParams.to_config` in the node) ends the run without
+    waiting out max_timeout_s."""
     cfg = pconfig.SimConfig(
         scheme="fake", max_timeout_s=60.0,
         runs=[pconfig.RunConfig(nodes=4, processes=2,
-                                handel=pconfig.HandelParams(unsafe_sleep_verify_ms=5))],
+                                handel=pconfig.HandelParams(evaluator="bogus"))],
     )
     t0 = time.perf_counter()
     res = run_platform(PPlatform, cfg, tmp_path)
@@ -729,7 +712,7 @@ def test_a_failing_node_process_fails_the_run_at_once(tmp_path):
     assert all(rc != 0 for rc in res.returncodes)
     # the first process to fail ends the run; the other may be killed first
     errs = [(tmp_path / f"node_0_{p}.err").read_text() for p in range(2)]
-    assert any("ROADMAP item 8" in e for e in errs)
+    assert any("unknown evaluator 'bogus'" in e for e in errs)
 
 
 def test_sim_cli_runs_a_config_and_prints_the_reference_lines(tmp_path):

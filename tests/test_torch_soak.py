@@ -50,14 +50,38 @@ def soak(cfg_mod, soak_mod, workdir):
     return asyncio.run(soak_mod.run_soak(cfg.soak, str(workdir), alert_p=cfg.alerts))
 
 
+def timing_of(report):
+    """The figures the soak's two wall-clock checks read: `swap_bounded`
+    (stall and swap gap against the bound) and `p99_within_slo` (each
+    tier's p99 against its target)."""
+    soak = report["soak"]
+    return {
+        "failed": sorted(k for k, ok in report["checks"].items() if not ok),
+        "stall_ms": report["epoch_swap_stall_ms"],
+        "swap_gap_ms": soak["gaps"]["swap_gap_ms"],
+        "bound_ms": soak["swap_gap_bound_ms"],
+        "p99_s": {name: tier["p99_s"] for name, tier in sorted(soak["tiers"].items())},
+    }
+
+
 def test_short_soak_beside_reference(tmp_path):
     ours = soak(pconfig, psoak, tmp_path / "port")
     theirs = soak(rconfig, rsoak, tmp_path / "ref")
     assert sorted(ours) == sorted(theirs)
     assert sorted(ours["soak"]) == sorted(theirs["soak"])
     assert [c.name for c in pchecks.SOAK_CHECKS] == [c.name for c in rchecks.SOAK_CHECKS]
-    for report in (ours, theirs):
-        assert report["ok"], report["checks"]
+    reports = (("port", ours), ("reference", theirs))
+    # both soaks' wall-clock figures, whichever fails: a failure under load
+    # then shows whether the other package's run came near its bounds too
+    timing = {package: timing_of(report) for package, report in reports}
+    for package, report in reports:
+        failed = {
+            c.name: c.describe(report)
+            for c in pchecks.SOAK_CHECKS if not report["checks"][c.name]
+        }
+        assert report["ok"], (
+            f"the {package}'s soak failed SOAK_CHECKS {failed}; both soaks: {timing}"
+        )
         pchecks.assert_checks(report, pchecks.SOAK_CHECKS)
         rchecks.assert_checks(report, rchecks.SOAK_CHECKS)
     assert ours["soak"]["epoch_rotations"] == theirs["soak"]["epoch_rotations"] == 1
@@ -74,3 +98,32 @@ def test_soak_subcommand_runs_geo_weighted(tmp_path):
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["ok"], report["checks"]
     rchecks.assert_checks(report, rchecks.SOAK_CHECKS)
+
+
+def soak_pairs(seconds: float, workdir: Path) -> None:
+    """Run the short soak of each package in pairs for `seconds`, the port
+    first in even pairs and the reference first in odd ones, and print one
+    JSON line a pair with both soaks' `timing_of`, whether they pass or
+    not. Beside a loaded host, this compares the two packages' timing
+    checks under the same load:
+
+        PYTHONPATH=. python tests/test_torch_soak.py SECONDS WORKDIR > pairs.jsonl
+    """
+    import tempfile
+    import time
+
+    deadline = time.monotonic() + seconds
+    pair = 0
+    while time.monotonic() < deadline:
+        with tempfile.TemporaryDirectory(dir=workdir) as d:
+            order = [("port", pconfig, psoak), ("reference", rconfig, rsoak)]
+            if pair % 2:
+                order.reverse()
+            timing = {name: timing_of(soak(cfg, mod, Path(d) / name))
+                      for name, cfg, mod in order}
+        print(json.dumps({"pair": pair, "port_first": pair % 2 == 0, **timing}), flush=True)
+        pair += 1
+
+
+if __name__ == "__main__":
+    soak_pairs(float(sys.argv[1]), Path(sys.argv[2]))
