@@ -55,9 +55,10 @@ Phases, one line each, any failure exits non-zero with no result line:
               forged lanes (wrong signature, wrong message), an empty bitset
               and padded lanes; verdicts must equal the ones known by
               construction, and B1's launch counter must grow during the
-              run; a small pairing is held against the scalar oracle; p50
-              wall ms per launch class, kernel launches per verify, peak
-              device memory
+              run; a small pairing is held against the scalar oracle; wall
+              ms per launch class (`p50_ms`: the one main-path launch since
+              phase 16 came, the median of two before), kernel launches per
+              verify, peak device memory
      rns_verify  the same launches through BN254TorchScheme(fp_backend="rns")
               (the resident pairing): the same verdicts, B2 launched and B1
               not, conversion counts, p50 per class, peak memory; a 2-lane
@@ -148,10 +149,11 @@ Phases, one line each, any failure exits non-zero with no result line:
               mixed-message launch (dispatch_multi) at 4096 keys and 128
               lanes, on RLC engines (BN254Device(bank=...)) over phase 4's
               registry banks and prefix tables, each launch's scalars from a
-              seeded random.Random: (a) one honest range launch of 128
-              candidates and (b) one honest dense launch of 126, one message
-              each: every verdict True, one combined check, 2 Miller lanes
-              and 1 final exponentiation, B1 launched and B2, B3a, B3b not;
+              seeded random.Random: (b) one honest dense launch of 126,
+              one message: every verdict True, one combined check, 2 Miller
+              lanes and 1 final exponentiation, B1 launched and B2, B3a,
+              B3b not ((a), the honest range launch of 128, was cut to pay
+              for phase 16: the range class runs in (c), (d) and (f));
               (c) one BatchVerifierService(fallback=None) over the RLC
               engine, four sessions of 32 range candidates on four messages:
               one launch, fill 1.0, G = 4 groups (5 Miller lanes),
@@ -166,10 +168,10 @@ Phases, one line each, any failure exits non-zero with no result line:
               B1 not (its MSMs run on the rns field, as in the reference).
               Each case prints its wall, host pack and dispatch ms per
               launch, RlcStats, launches and B1's and B2's calls by column
-              count; the summary line its peak memory, each wall over
-              phase 4's per-candidate p50 of the same class and backend, and
-              each cios case's wall over case (e)'s, the per-candidate launch
-              of the same phase.
+              count; the summary line its peak memory, (b)'s and (f)'s
+              walls over phase 4's per-candidate p50 of the same class and
+              backend, and each cios case's wall over case (e)'s, the
+              per-candidate launch of the same phase.
  11. bls12_381  the BLS12-381 family through new_scheme("bls12-381-cuda") at
               the repo's shape for it (scripts/bench_bls12.py): a 1024-key
               registry from small seeded scalars, 64 lanes. On cios, one
@@ -233,8 +235,9 @@ Phases, one line each, any failure exits non-zero with no result line:
               BatchVerifierService(fallback=None) over phase 4's cios engine;
               four RPCVerifier clients, standing for hosts without a card,
               each ship 32 range candidates with phase 4's forged lanes at
-              once: the verdicts as known by construction and as a direct
-              launch of the same candidates, in one launch of 128. Then a
+              once: the verdicts as known by construction (a direct launch
+              of the same candidates cross-checked them until phase 16
+              came), in one launch of 128. Then a
               request in flight when the server stops and its link is cut
               fails with a ConnectionError, and the client's next call, after
               the server restarts on its port, reconnects and gets its
@@ -324,12 +327,52 @@ Phases, one line each, any failure exits non-zero with no result line:
               The line gives the wall, the sigen wall (time to threshold),
               launches, candidates, fill, departures, the achieved stakes
               beside the gate, and B1's calls by process.
+16. mesh      the multi-device verify plane (parallel/sharding.py,
+              parallel/mesh_plane.py) over phase 4's registry and curves: a
+              mesh of 2 shards (cuda:0 and cuda:1 when two cards are
+              visible, else two shards on cuda:0; the line says which), each
+              shard's work issued in turn on its own stream.
+              (a) bn254_mesh_engine(pks, devices=2, batch_size=8) makes one
+              range launch of 8 candidates and one dense launch of 8
+              scattered quarter subsets (far more holes than MISS_CAP), one
+              forged signature in each: the verdicts as known, the dense
+              launch's sharded aggregate (affine) equal to phase 4's
+              single-card masked sum of the same mask, B1 launched inside
+              each launch (counted by card, both cards when there are two),
+              mesh_launches 2. (b) The same engine as the mesh lane of a
+              BatchVerifierService(fallback=None, recorder) whose
+              throughput lane is phase 4's engine (enable_latency_plane,
+              ModePolicy(small_batch_max=8)): a gold-tier group of 8 rides
+              the mesh (meshLaunches 1, modeLatencyLaunches 1, its span
+              launch_on_mesh), then a standard-tier group of 64 stays on
+              the card's lane (launch_on_device); every verdict exact, no
+              mesh fallback, failover, retry or open breaker. The line
+              gives each mesh launch's wall beside phase 4's p50 of its
+              class, the service groups' walls and spans, and B1 by card.
+              It runs right after phase 5, since phase 14 rotates phase
+              4's engine off its registry. Phase 4's timed second launch
+              of each class, phase 10's honest single-message range case
+              and phase 12's RPC case's direct cross-check launch were cut
+              to pay for it.
 
-Each path of phases 4, 6, 7, 8, 10, 11, 12's RPC and ban cases and 14 is one
-main-path run: every kernel's launch count is set to 0 just before it and
-read just after; phases 9's, 12's, 13's and 15's sim counts are the node
-processes' own, which start at 0. Then one JSON line of kernel figures, the seconds
-each phase took (`phases`), the total, the nvidia-smi line again, and last
+Two processes share the card. The first runs phases 1-3 and 6 alone, so
+that their timings see no other work, and then starts the second
+(`chip_smoke.py --worker DIR`, WORKER_PHASES: phases 7, 8's rounds, 9,
+12's sim, 13 and 15, in that order), which needs none of phase 4's state.
+The first goes on with phases 4, 5, 16, 8's load, 10, 11, 12's RPC and ban
+cases and 14, then prints the second's lines and takes its figures; a
+failure of either fails the run, and a failure of the first, or a SIGTERM,
+stops the second and the node processes of its sim. Each process issues
+its launches from a core of its own: the launches are host-bound, so
+the two lists overlap, and every wall from phase 4 on is taken beside the
+other process's work on the card.
+
+Each path of phases 4, 6, 7, 8, 10, 11, 12's RPC and ban cases, 14 and 16
+is one main-path run: every kernel's launch count (its process's own) is
+set to 0 just before it and read just after; phases 9's, 12's, 13's and
+15's sim counts are the node processes' own, which start at 0. Then one
+JSON line of kernel figures, the seconds each phase took in each process
+(`phases`), the total, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -359,7 +402,8 @@ LANES = 128
 RANGE_CANDIDATES = 64
 DENSE_CANDIDATES = 126
 # launches timed per class after the main-path one, whose wall joins them
-TIMED_LAUNCHES = 1
+# (1 until phase 16 came: the second launch of each class paid for it)
+TIMED_LAUNCHES = 0
 # the per-node round's committee: every node's launches queue on the one
 # event loop, so the fewest nodes whose store merges still reach the device
 # combine (groups of 4 points or more; none do at 4 nodes, one does at 5,
@@ -460,6 +504,27 @@ GEO_RUN_CHANGES = {"nodes": 16, "processes": 2}
 GEO_CHURNERS = 2
 # its subprocess limit, below the changed max_timeout_s of 600
 GEO_LIMIT_S = 540.0
+# phase 16: the mesh (parallel/sharding.py) over phase 4's registry: two
+# shards (two cards when two are visible, else two shards on cuda:0), and
+# the mesh lane's launch width, sim/config.py's mesh_batch_size default
+MESH_SHARDS = 2
+MESH_BATCH = 8
+# the lanes of phase 16's launches whose signatures are forged
+MESH_FORGED_RANGE = 5
+MESH_FORGED_DENSE = 2
+# the phases that run in a second process of the script (`--worker`), in
+# this order, beside the first process's phases 4, 5, 16, 8's load, 10, 11,
+# 12's RPC and ban cases and 14: they need none of phase 4's state, and each
+# process issues its launches from a core of its own, so that the script
+# takes about the longer of the two lists (one process took their sum,
+# 967-1,072 s of the 1,200 on an H100 80GB HBM3 at 700 W)
+WORKER_PHASES = ("round", "service_round", "service_round_rns", "sim", "adversarial",
+                 "fleet", "weighted")
+# the first process's wait for the second, from the script's start: a
+# second process still running then is stopped, and the run fails
+WORKER_DEADLINE_S = 1140.0
+# the seconds a stopped second process has to stop its sims' node processes
+WORKER_STOP_S = 30.0
 # a secret key outside the round's registry (its keys come from
 # new_keypair(seed=i), SHA-256 derived): the forger of phase 7
 FORGER_SCALAR = 0x5EED_F0E6
@@ -477,6 +542,19 @@ L2_BYTES = 50 << 20  # H100 L2 cache, 50 MB
 
 def line(phase: str, **kw) -> None:
     print(f"{phase}: " + json.dumps(kw, sort_keys=True), flush=True)
+
+
+class PhaseClock:
+    """The seconds each phase took, each from the end of the one before."""
+
+    def __init__(self) -> None:
+        self.start = self.last = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.last
+        self.last = now
 
 
 def nvidia_smi() -> str:
@@ -2020,15 +2098,12 @@ def rpc_phase(cons, pks, sks, counters, prng) -> dict:
     in front of one BatchVerifierService(fallback=None) over phase 4's cios
     engine; RPC_CLIENTS RPCVerifier clients, standing for hosts without a
     card, each ship RPC_CANDIDATES range candidates with phase 4's forged
-    lanes at once: the verdicts as known by construction and as a direct
-    launch of the same candidates gives them, fused into one launch. Then
-    the link-loss path: the first client's next request in flight, the
-    server stops and the link is cut; the request fails with a
+    lanes at once: the verdicts as known by construction, fused into one
+    launch. Then the link-loss path: the first client's next request in
+    flight, the server stops and the link is cut; the request fails with a
     ConnectionError, and after the server restarts on its port the client's
     next call reconnects and gets its verdicts. Returns the figures."""
     import asyncio
-
-    import torch
 
     from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
     from handel_tpu_torch.parallel.rpc_verifier import RPCVerifier, VerifierServer
@@ -2080,8 +2155,6 @@ def rpc_phase(cons, pks, sks, counters, prng) -> dict:
     zero_counts(counters)
     got, fused_s, fused, failed, again, client_values, served = asyncio.run(go())
     launches = {k: c.launches for k, c in counters.items()}
-    direct = cons.batch_verify(MSG, pks, every)
-    torch.cuda.synchronize(engine.device)
     flat = [v for verdicts in got for v in verdicts]
     fig = {"clients": RPC_CLIENTS, "candidates": len(every), "distinct": distinct,
            "fused_s": fused_s, "fused_launches": fused["verifierLaunches"],
@@ -2092,9 +2165,9 @@ def rpc_phase(cons, pks, sks, counters, prng) -> dict:
            "restarted_server_values": served, "kernel_launches": launches,
            "widths": width_histograms(counters)}
     line("rpc", **fig)
-    if flat != expect or flat != list(direct):
-        bad = [j for j, (g, e, d) in enumerate(zip(flat, expect, direct)) if g != e or g != d]
-        raise AssertionError(f"rpc: verdicts differ from the known and direct ones at {bad}")
+    if flat != expect:
+        bad = [j for j, (g, e) in enumerate(zip(flat, expect)) if g != e]
+        raise AssertionError(f"rpc: verdicts differ from the known ones at {bad}")
     if (fused["verifierLaunches"] != 1 or fused["verifierCandidates"] != distinct
             or fused["dedupHits"] != len(every) - distinct):
         raise AssertionError(f"rpc: {fused['verifierLaunches']} launches of "
@@ -2752,7 +2825,7 @@ def rlc_phase(cons, rcons, sks, pks, counters, prng, p50_ms) -> dict:
     """Phase 10: the RLC batch check and mixed-message launches at 4096 keys
     and 128 lanes (module docstring), on RLC engines that share phase 4's
     registry banks and prefix tables. One main-path run: every count set to
-    0 before case (a) and read after case (f). Raises on any failed check;
+    0 before case (b) and read after case (f). Raises on any failed check;
     returns the figures."""
     import asyncio
 
@@ -2771,6 +2844,8 @@ def rlc_phase(cons, rcons, sks, pks, counters, prng, p50_ms) -> dict:
     for kind, reqs in (("range", range_reqs), ("dense", dense_reqs)):
         if eng._pack_requests(reqs).kind != kind:
             raise AssertionError(f"rlc: {kind} requests packed as another launch class")
+    # (a), the honest range launch on cios, was cut to pay for phase 16: its
+    # requests still feed (f)
     per_session = LANES // RLC_SESSIONS
     session_msgs = [MSG + b" session %d" % i for i in range(RLC_SESSIONS)]
     sessions = [make_requests("range", sks, per_session, prng, BN254Device, msg=m, honest=True)
@@ -2785,15 +2860,13 @@ def rlc_phase(cons, rcons, sks, pks, counters, prng, p50_ms) -> dict:
     t_phase = time.perf_counter()
     cases = {}
 
-    # (a) and (b): one honest launch per class, one message
-    for name, reqs, expect in (("range", range_reqs, range_expect),
-                               ("dense", dense_reqs, dense_expect)):
-        with RlcCase(name, eng, counters, "fp_mont_mul") as case:
-            got = eng.fetch(eng.dispatch(MSG, reqs))
-        case.fig["candidates"] = len(reqs)
-        case.check(got, expect, rlc_launches=1, bisection_ct=0, miller_lanes=2,
-                   final_exp_lanes=1, engine_launches=1)
-        cases[name] = case.fig
+    # (b): one honest dense launch, one message
+    with RlcCase("dense", eng, counters, "fp_mont_mul") as case:
+        got = eng.fetch(eng.dispatch(MSG, dense_reqs))
+    case.fig["candidates"] = len(dense_reqs)
+    case.check(got, dense_expect, rlc_launches=1, bisection_ct=0, miller_lanes=2,
+               final_exp_lanes=1, engine_launches=1)
+    cases["dense"] = case.fig
 
     # (c) four sessions, four messages, one service launch
     calls = LaneCalls(eng)
@@ -2869,11 +2942,10 @@ def rlc_phase(cons, rcons, sks, pks, counters, prng, p50_ms) -> dict:
         "per_candidate_p50_ms": p50_ms,
         "wall_over_per_candidate_p50": {
             name: cases[name]["wall_ms"] / p50_ms[key]
-            for name, key in (("range", "cios_range"), ("dense", "cios_dense"),
-                              ("range_rns", "rns_range"))},
+            for name, key in (("dense", "cios_dense"), ("range_rns", "rns_range"))},
         "wall_over_case_e": {
             name: cases[name]["wall_ms"] / cases["multi_msg"]["wall_ms"]
-            for name in ("range", "dense", "service", "forged_pair")},
+            for name in ("dense", "service", "forged_pair")},
     }
     line("rlc_summary", **{k: v for k, v in fig.items() if k != "cases"})
     return fig
@@ -3030,16 +3102,331 @@ def bls_phase(dev, counters) -> dict:
     return fig
 
 
-def main() -> int:
+def mesh_requests(kind: str, sks, prng, forged: int):
+    """MESH_BATCH honest candidates of `kind` with lane `forged`'s signature
+    moved off its aggregate by one generator: (requests, expected)."""
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+
+    reqs, expect = make_requests(kind, sks, MESH_BATCH, prng, BN254Device, honest=True)
+    bs, sig = reqs[forged]
+    reqs[forged] = (bs, BN254Device.Signature(BN254Device.ref.g1_add(sig.point,
+                                                                       BN254Device.ref.G1_GEN)))
+    expect[forged] = False
+    return reqs, expect
+
+
+def mesh_phase(cons, pks, sks, counters, prng, p50_ms) -> dict:
+    """Phase 16: the mesh on the card, as one main-path run. (a) One
+    `bn254_mesh_engine(pks, devices=2)` over phase 4's curves and registry
+    makes one range and one dense launch of MESH_BATCH candidates, a forged
+    one in each: verdicts as known, the dense launch's sharded aggregate
+    (affine) equal to phase 4's single-card masked sum of the same mask,
+    B1 inside each launch (by card), `mesh_launches` 2. (b) The same engine
+    as the mesh lane (`enable_latency_plane`) of a service whose throughput
+    lane is phase 4's engine: a gold-tier group of MESH_BATCH rides the mesh
+    (meshLaunches + 1, span `launch_on_mesh`), then a standard-tier group of
+    RANGE_CANDIDATES stays on the card's lane; verdicts exact, no fallback,
+    no open breaker. Returns the figures."""
+    import asyncio
+
     import torch
 
+    from handel_tpu_torch.core.trace import FlightRecorder
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
+    from handel_tpu_torch.parallel.mesh_plane import (
+        ModePolicy,
+        bn254_mesh_engine,
+        enable_latency_plane,
+    )
+    from handel_tpu_torch.parallel.sharding import make_mesh
+
+    engine = cons._device  # phase 4's engine: 4096 keys, 128 lanes, cios
+    cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(MESH_SHARDS)]
+               if cards >= MESH_SHARDS else [torch.device("cuda", 0)] * MESH_SHARDS)
+    placement = ("one shard a card" if cards >= MESH_SHARDS
+                 else f"{MESH_SHARDS} shards on cuda:0 ({cards} card visible)")
+    mesh = make_mesh(MESH_SHARDS, devices=devices)
+    t0 = time.perf_counter()
+    eng = bn254_mesh_engine(pks, MESH_SHARDS, batch_size=MESH_BATCH, curves=cons.curves,
+                            mesh=mesh)
+    build_s = time.perf_counter() - t0
+    range_reqs = mesh_requests("range", sks, prng, MESH_FORGED_RANGE)
+    dense_reqs = mesh_requests("dense", sks, prng, MESH_FORGED_DENSE)
+    gold_reqs = mesh_requests("range", sks, prng, MESH_FORGED_RANGE)
+    std_reqs = make_requests("range", sks, RANGE_CANDIDATES, prng, cons.Device)
+    for kind, (reqs, _) in (("range", range_reqs), ("dense", dense_reqs),
+                            ("range", gold_reqs)):
+        if eng._pack_requests(reqs).kind != kind:
+            raise AssertionError(f"phase 16: {kind} requests packed as another class")
+    # the dense launch's sharded aggregate, kept for the single-card check
+    aggs = []
+    sharded_sum = eng._sharded_sum
+
+    def keep_aggregate(*args):
+        aggs.append(sharded_sum(*args))
+        return aggs[-1]
+
+    eng._sharded_sum = keep_aggregate
+
+    rec = FlightRecorder(capacity=1 << 16)
+    svc = BatchVerifierService(engine, fallback=None, max_inflight=2, recorder=rec)
+    enable_latency_plane(svc, eng, policy=ModePolicy(small_batch_max=MESH_BATCH))
+    svc.queue.set_tier("gold0", "gold")
+
+    async def through_service():
+        try:
+            t0 = time.perf_counter()
+            gold = await svc.verify(MSG, pks, gold_reqs[0], session="gold0")
+            gold_s = time.perf_counter() - t0
+            mid = svc.values()
+            t0 = time.perf_counter()
+            std = await svc.verify(MSG, pks, std_reqs[0], session="std0")
+            return gold, std, gold_s, time.perf_counter() - t0, mid, svc.values()
+        finally:
+            svc.stop()
+
+    # the main path: counts zeroed just before, read just after
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    launches = {}
+    for kind, (reqs, expect) in (("range", range_reqs), ("dense", dense_reqs)):
+        before = snapshot(counters)
+        by_card = dict(mont_mul.devices)
+        t0 = time.perf_counter()
+        got = eng.fetch(eng.dispatch(MSG, reqs))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        delta = moved(counters, before)
+        launches[kind] = {
+            "wall_ms": wall_ms, "phase4_p50_ms": p50_ms[kind],
+            "kernel_launches": {k: d["launches"] for k, d in delta.items()},
+            "b1_by_card": {str(d): n - by_card.get(d, 0)
+                           for d, n in sorted(mont_mul.devices.items())
+                           if n != by_card.get(d, 0)},
+            "verdicts_ok": got == expect,
+        }
+        if got != expect:
+            bad = [j for j, (g, e) in enumerate(zip(got, expect)) if g != e]
+            raise AssertionError(f"phase 16 mesh {kind} launch: verdicts wrong at lanes {bad}")
+    direct_launches = eng.mesh_launches
+    gold, std, gold_s, std_s, mid, values = asyncio.run(through_service())
+    total = {k: c.launches for k, c in counters.items()}
+    widths = width_histograms(counters)
+    b1_by_card = {str(d): n for d, n in sorted(mont_mul.devices.items())}
+    eng._sharded_sum = sharded_sum
+
+    # checks
+    for kind, fig in launches.items():
+        if fig["kernel_launches"].get("fp_mont_mul", 0) == 0:
+            raise AssertionError(f"phase 16: no B1 launch inside the mesh {kind} launch")
+        if cards >= MESH_SHARDS and len(fig["b1_by_card"]) != MESH_SHARDS:
+            raise AssertionError(f"phase 16 {kind}: B1 by card {fig['b1_by_card']}")
+    for k in ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"):
+        if total[k]:
+            raise AssertionError(f"phase 16 launched {k} {total[k]} times")
+    if gold != gold_reqs[1]:
+        raise AssertionError(f"phase 16 gold group verdicts {gold} != {gold_reqs[1]}")
+    if std != std_reqs[1]:
+        bad = [j for j, (g, e) in enumerate(zip(std, std_reqs[1])) if g != e]
+        raise AssertionError(f"phase 16 standard group verdicts wrong at lanes {bad}")
+    if (direct_launches, eng.mesh_launches) != (2, 3) or mid["meshLaunches"] != 1.0 \
+            or values["meshLaunches"] != 1.0:
+        raise AssertionError(f"phase 16: mesh launches {direct_launches} then "
+                             f"{eng.mesh_launches}, the service's {mid['meshLaunches']} / "
+                             f"{values['meshLaunches']}")
+    if values["modeLatencyLaunches"] != 1.0 or values["modeThroughputLaunches"] < 1.0:
+        raise AssertionError(f"phase 16: mode launches {values['modeLatencyLaunches']} / "
+                             f"{values['modeThroughputLaunches']}")
+    if values["meshFallbacks"] != 0.0 or values["meshLanesAvailable"] != 1.0:
+        raise AssertionError(f"phase 16: mesh fallbacks {values['meshFallbacks']}, "
+                             f"available {values['meshLanesAvailable']}")
+    service_checks("phase 16 service", values)
+    spans = [ev for ev in rec.events() if ev[1] == "X" and ev[0].startswith("launch_on_")]
+    gold_spans = [ev for ev in spans if (ev[6] or {}).get("sessions") == "gold0"]
+    std_spans = [ev for ev in spans if (ev[6] or {}).get("sessions") == "std0"]
+    if [ev[0] for ev in gold_spans] != ["launch_on_mesh"] or not std_spans or any(
+            ev[0] != "launch_on_device" for ev in std_spans):
+        raise AssertionError(f"phase 16 spans: gold {[ev[0] for ev in gold_spans]}, "
+                             f"standard {[ev[0] for ev in std_spans]}")
+
+    # the dense launch's sharded aggregate against phase 4's single-card
+    # masked sum of the same mask (outside the main path's counts)
+    (agg,) = aggs
+    n, C = len(pks), MESH_BATCH
+    mask = np.zeros((n, C), bool)
+    for j, (bs, _) in enumerate(dense_reqs[0]):
+        mask[list(bs.indices()), j] = True
+    g2, T = cons.curves.g2, cons.curves.T
+    tile = lambda a: a.repeat_interleave(C, dim=1)  # noqa: E731
+    (x0, x1), (y0, y1) = engine.bank.reg_x, engine.bank.reg_y
+    single = g2.masked_sum(
+        g2.from_affine((tile(x0), tile(x1)), (tile(y0), tile(y1))),
+        torch.from_numpy(mask.reshape(-1)).to(engine.device), n)
+    affine = []
+    for pt in (agg, single):
+        x, y, inf = g2.to_affine(pt)
+        affine.append((T.f2_unpack(x), T.f2_unpack(y), inf.cpu().tolist()))
+    if affine[0] != affine[1] or any(affine[0][2]):
+        raise AssertionError("phase 16: the sharded dense aggregate != the single-card sum")
+
+    fig = {
+        "shards": MESH_SHARDS, "devices": [str(d) for d in devices], "placement": placement,
+        "batch": MESH_BATCH, "registry": n,
+        "build_s": build_s, "launches": launches,
+        "dense_aggregate_equals_single_card": True,
+        "service": {"gold_wall_ms": gold_s * 1e3, "standard_wall_ms": std_s * 1e3,
+                    "gold_span_ms": gold_spans[0][3] * 1e3,
+                    "standard_span_ms": [ev[3] * 1e3 for ev in std_spans],
+                    "meshLaunches": values["meshLaunches"],
+                    "modeLatencyLaunches": values["modeLatencyLaunches"],
+                    "modeThroughputLaunches": values["modeThroughputLaunches"],
+                    "meshFallbacks": values["meshFallbacks"]},
+        "mesh_launches": {"direct": direct_launches, "after_service": eng.mesh_launches},
+        "mesh_candidates": eng.mesh_candidates,
+        "kernel_launches": total, "b1_by_card": b1_by_card, "widths": widths,
+    }
+    line("mesh", **fig)
+    return fig
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.kernels.lab_mont import lab_cios_fullwidth, lab_separated
+    from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
+
+    return {"fp_mont_mul": mont_mul, "rns_mont_mul_resident": rns_mul_resident,
+            "lab_cios_fullwidth": lab_cios_fullwidth, "lab_separated": lab_separated}
+
+
+def worker_phases(dev, counters, clock: PhaseClock) -> dict:
+    """WORKER_PHASES, in order, each timed by `clock`; returns their
+    figures by phase."""
+    import torch
+
+    figs = {"round": round_phase(dev, counters)}
+    clock("round")
+    figs["service_round"] = service_round_phase(
+        dev, counters, "cios", "round", "fp_mont_mul",
+        ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"))
+    clock("service_round")
+    figs["service_round_rns"] = service_round_phase(
+        dev, counters, "rns", "round_rns", "rns_mont_mul_resident",
+        ("lab_cios_fullwidth", "lab_separated"), nodes=SERVICE_ROUND_NODES_RNS)
+    clock("service_round_rns")
+    for name, phase in (("sim", sim_phase), ("adversarial", adversarial_phase),
+                        ("fleet", fleet_phase), ("weighted", weighted_phase)):
+        torch.cuda.empty_cache()  # the sim's node processes share the card
+        figs[name] = phase()
+        clock(name)
+    assert tuple(figs) == WORKER_PHASES
+    return figs
+
+
+def worker_main(out_dir: str) -> int:
+    """`chip_smoke.py --worker OUT_DIR`, the script's second process:
+    WORKER_PHASES on the kernels the first process built, their lines on
+    standard output, their figures and seconds in OUT_DIR/figures.json."""
+    import torch
+
+    clock = PhaseClock()
+    figs = worker_phases(torch.device("cuda", 0), kernel_counters(), clock)
+    with open(os.path.join(out_dir, "figures.json"), "w") as f:
+        json.dump({"figures": figs, "seconds": clock.seconds}, f)
+    return 0
+
+
+def start_worker(out_dir: str) -> subprocess.Popen:
+    """Starts the second process in a session of its own, its standard
+    output and error in files under `out_dir`."""
+    here = Path(__file__).resolve()
+    with open(os.path.join(out_dir, "worker.out"), "w") as out, \
+            open(os.path.join(out_dir, "worker.err"), "w") as err:
+        return subprocess.Popen([sys.executable, str(here), "--worker", out_dir],
+                                cwd=here.parent, stdout=out, stderr=err,
+                                start_new_session=True)
+
+
+def stop_worker(proc: subprocess.Popen) -> None:
+    """Stops the second process if it still runs: SIGTERM first, which it
+    turns into SystemExit, so that its running sim stops its node processes
+    (sim_run's and fleet_phase's `finally`); then SIGKILL to its group."""
+    if proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=WORKER_STOP_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def check_worker(proc: subprocess.Popen, out_dir: str) -> None:
+    """Raises, with the end of its standard error, if the second process
+    has ended with a code other than 0."""
+    if proc.poll() not in (None, 0):
+        with open(os.path.join(out_dir, "worker.err")) as f:
+            err = f.read()
+        raise AssertionError(f"the second process ({', '.join(WORKER_PHASES)}) exited "
+                             f"{proc.returncode}:\n{err[-6000:]}")
+
+
+def join_worker(proc: subprocess.Popen, out_dir: str, deadline: float) -> dict:
+    """Waits for the second process until `deadline` (time.perf_counter()),
+    stopping it then; prints its lines and returns its figures and seconds.
+    Raises if it failed or did not end in time."""
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        late = False
+    except subprocess.TimeoutExpired:
+        stop_worker(proc)
+        late = True
+    with open(os.path.join(out_dir, "worker.out")) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if late:
+        raise AssertionError(f"the second process ({', '.join(WORKER_PHASES)}) still ran "
+                             f"{WORKER_DEADLINE_S} s after the start")
+    check_worker(proc, out_dir)
+    with open(os.path.join(out_dir, "figures.json")) as f:
+        return json.load(f)
+
+
+def main(argv: list[str] | None = None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    # a SIGTERM, from the caller or from the first process, unwinds through
+    # every `finally`, and so stops the processes this one started
+    signal.signal(signal.SIGTERM, lambda signum, _frame: sys.exit(128 + signum))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if len(argv) == 2 and argv[0] == "--worker":
+        return worker_main(argv[1])
+    if argv:
+        print("usage: python3 chip_smoke.py", file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_worker_") as worker_dir:
+        workers: list[subprocess.Popen] = []
+        try:
+            return first_process(worker_dir, workers)
+        finally:
+            for proc in workers:
+                stop_worker(proc)
+
+
+def first_process(worker_dir: str, workers: list) -> int:
+    """The script's first process: phases 1-6, then the second process
+    (WORKER_PHASES, started into `workers`, its files in `worker_dir`)
+    beside phases 4, 5, 16, 8's load, 10, 11, 12's RPC and ban cases and
+    14; then the kernels line and the result."""
+    import torch
+
     from handel_tpu_torch.kernels import build
     from handel_tpu_torch.kernels.fp_mont import mont_mul
-    from handel_tpu_torch.kernels.lab_mont import lab_cios_fullwidth, lab_separated
     from handel_tpu_torch.kernels.rns_mont import SUPPORTED_BASES as RNS_BASES
     from handel_tpu_torch.kernels.rns_mont import TILES as RNS_TILES
     from handel_tpu_torch.kernels.rns_mont import rns_mul_resident
@@ -3047,15 +3434,15 @@ def main() -> int:
     from handel_tpu_torch.ops import bn254_ref as bn
     from handel_tpu_torch.ops.fp import Field
 
-    t_start = time.perf_counter()
-    phase_s: dict[str, float] = {}
-    last = [t_start]
+    clock = PhaseClock()
+    t_start = clock.start
 
     def done(phase: str) -> None:
-        """Seconds since the previous phase ended, under `phase`."""
-        now = time.perf_counter()
-        phase_s[phase] = now - last[0]
-        last[0] = now
+        """Seconds since the previous phase ended, under `phase`; raises
+        if the second process has failed meanwhile."""
+        clock(phase)
+        for proc in workers:
+            check_worker(proc, worker_dir)
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -3130,6 +3517,12 @@ def main() -> int:
     pairing_phase(dev, "cios", BN254Device)
     pairing_phase(dev, "rns", BN254Device)
     done("pairing")
+    counters = kernel_counters()
+    lab = lab_phase(dev, counters)
+    done("lab")
+    # the second process starts once phase 3's and 6's timings are taken:
+    # the card runs both processes' launches from here on
+    workers.append(start_worker(worker_dir))
 
     prng = random.Random(SEED)
     t0 = time.perf_counter()
@@ -3140,8 +3533,6 @@ def main() -> int:
     }
     line("setup", registry=N_REGISTRY, host_keygen_s=time.perf_counter() - t0)
     done("setup")
-    counters = {"fp_mont_mul": mont_mul, "rns_mont_mul_resident": rns_mul_resident,
-                "lab_cios_fullwidth": lab_cios_fullwidth, "lab_separated": lab_separated}
     cons = BN254TorchScheme(batch_size=LANES, device=dev).constructor
     cios, cios_p50 = verify_path("cios", cons, pks, reqs, counters, "fp_mont_mul",
                                  ("rns_mont_mul_resident", "lab_cios_fullwidth",
@@ -3160,43 +3551,28 @@ def main() -> int:
             lambda c: rns_bound_ms(rcons.curves.F, c)),
     }
     done("profile")
-    lab = lab_phase(dev, counters)
-    done("lab")
-    rnd = round_phase(dev, counters)
-    done("round")
+    # phase 16 runs here: phase 14 later rotates phase 4's engine off the
+    # registry phase 16 uses
+    mesh = mesh_phase(cons, pks, sks, counters, prng, cios_p50)
+    done("mesh")
     load = service_load_phase(cons, pks, sks, counters, prng)
     done("service_load")
-    srnd = service_round_phase(dev, counters, "cios", "round", "fp_mont_mul",
-                               ("rns_mont_mul_resident", "lab_cios_fullwidth", "lab_separated"))
-    done("service_round")
-    srnd_rns = service_round_phase(dev, counters, "rns", "round_rns", "rns_mont_mul_resident",
-                                   ("lab_cios_fullwidth", "lab_separated"),
-                                   nodes=SERVICE_ROUND_NODES_RNS)
-    done("service_round_rns")
-    torch.cuda.empty_cache()  # phase 9's node processes share the card
-    sim = sim_phase()
-    done("sim")
     rlc = rlc_phase(cons, rcons, sks, pks, counters, prng, {
         "cios_range": cios_p50["range"], "cios_dense": cios_p50["dense"],
         "rns_range": rns_p50["range"]})
     done("rlc")
     bls = bls_phase(dev, counters)
     done("bls12_381")
-    torch.cuda.empty_cache()  # phase 12's node processes share the card
-    adv = adversarial_phase()
-    done("adversarial")
     rpc = rpc_phase(cons, pks, sks, counters, prng)
     done("rpc")
     ban = ban_case(cons, pks, sks, counters)
     done("ban")
-    torch.cuda.empty_cache()  # phase 13's node processes share the card
-    fleet = fleet_phase()
-    done("fleet")
     life = lifecycle_phase(cons, pks, sks, counters)
     done("lifecycle")
-    torch.cuda.empty_cache()  # phase 15's node processes share the card
-    weighted = weighted_phase()
-    done("weighted")
+    joined = join_worker(workers[0], worker_dir, t_start + WORKER_DEADLINE_S)
+    done("wait_for_second_process")
+    rnd, srnd, srnd_rns, sim, adv, fleet, weighted = (
+        joined["figures"][name] for name in WORKER_PHASES)
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
               "widths": f["widths"].get("fp_mont_mul", {})}
@@ -3271,7 +3647,12 @@ def main() -> int:
                             "in_flip": [f["b1_calls"] for f in life["flips"]]},
               on_weighted_sim={"launches": weighted["b1_launches"],
                                "launches_in_round": weighted["b1_launches_in_round"],
-                               "by_process": weighted["b1_launches_in_round_by_process"]}),
+                               "by_process": weighted["b1_launches_in_round_by_process"]},
+              on_mesh={"launches": mesh["kernel_launches"]["fp_mont_mul"],
+                       "by_card": mesh["b1_by_card"],
+                       "by_launch": {k: f["kernel_launches"].get("fp_mont_mul", 0)
+                                     for k, f in mesh["launches"].items()},
+                       "widths": mesh["widths"].get("fp_mont_mul", {})}),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],
@@ -3286,7 +3667,7 @@ def main() -> int:
                 captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])
           for kname in ("lab_cios_fullwidth", "lab_separated")),
     ]}))
-    line("phases", seconds=phase_s)
+    line("phases", seconds=clock.seconds, second_process_seconds=joined["seconds"])
     line("total", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -578,7 +578,17 @@ class BatchProcessing:
                     if self.sig_verify_failed == 1
                     else self.log.debug
                 )
-                log("verify_failed", f"origin={sp.origin} level={sp.level}")
+                # the candidate's bytes as received (ROADMAP §C, C6): with
+                # the fake scheme a verdict fails only on an empty bitset or
+                # a signature whose bytes are not the valid one's
+                bs = sp.ms.bitset
+                log(
+                    "verify_failed",
+                    f"origin={sp.origin} level={sp.level} ind={sp.is_ind} "
+                    f"bits={bs.cardinality()}/{len(bs)} "
+                    f"bitset={bs.marshal().hex()} "
+                    f"sig={sp.ms.signature.marshal().hex()}",
+                )
                 if self.on_verify_failed is not None:
                     # attribute the bad signature to the packet origin so
                     # the node can demote/ban a byzantine peer

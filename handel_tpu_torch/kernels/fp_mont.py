@@ -4,12 +4,13 @@
 with torch.empty, launches on torch.cuda.current_stream() and raises if the
 launch was refused. `mont_mul.launches` counts launches, and only launches:
 a run can read it to show that its path went through the kernel;
-`mont_mul.widths` counts the launches by column count and `mont_mul.rows`
-by limb count (16 for BN254, 24 for BLS12-381), and `reset()` zeroes all
-three. `with mont_mul.tally() as widths:` counts, by width, only the
-launches that the calling thread makes inside the block, so a window on
-one thread reads exactly its own launches while other threads launch too
-(a registry staging beside a service's dispatches). The library is built
+`mont_mul.widths` counts the launches by column count, `mont_mul.rows`
+by limb count (16 for BN254, 24 for BLS12-381) and `mont_mul.devices` by
+card index (a mesh's shards), and `reset()` zeroes all four. `with
+mont_mul.tally() as widths:` counts, by width, only the launches that the
+calling thread makes inside the block, so a window on one thread reads
+exactly its own launches while other threads launch too (a registry
+staging beside a service's dispatches). The library is built
 and loaded at the first launch, never at import.
 
 Lanes per column: the kernel shares each column among TPI = 2 or 4 lanes
@@ -56,6 +57,8 @@ class MontMulKernel:
         self.widths: Counter[int] = Counter()
         # launches by row count (limbs): which curve family's field ran
         self.rows: Counter[int] = Counter()
+        # launches by card index: which shard of a mesh ran
+        self.devices: Counter[int] = Counter()
         self.tpi: int | None = None
         self._fn = None
         # open `tally()` windows: thread id -> that thread's width counter
@@ -71,12 +74,15 @@ class MontMulKernel:
             self.launches = 0
             self.widths.clear()
             self.rows.clear()
+            self.devices.clear()
 
-    def _count(self, cols: int, rows: int) -> None:
+    def _count(self, cols: int, rows: int, device: int | None = None) -> None:
         with self._lock:
             self.launches += 1
             self.widths[cols] += 1
             self.rows[rows] += 1
+            if device is not None:
+                self.devices[device] += 1
             tally = self._tallies.get(threading.get_ident())
             if tally is not None:
                 tally[cols] += 1
@@ -159,7 +165,7 @@ class MontMulKernel:
             )
         if rc != 0:
             raise RuntimeError(f"mont_mul launch failed: cudaError {rc}")
-        self._count(cols, n)
+        self._count(cols, n, dev.index)
         return out
 
 

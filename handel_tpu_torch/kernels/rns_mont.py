@@ -5,11 +5,12 @@
 output with torch.empty, launches on torch.cuda.current_stream() and raises
 if the launch was refused. `rns_mul_resident.launches` counts launches, and
 only launches; `rns_mul_resident.widths` counts the launches by column
-count and `rns_mul_resident.rows` by k_all (46 for BN254, 65 for
-BLS12-381), and `reset()` zeroes all three. The library is built and loaded
-at the first launch, never at import. `pack_constants` builds the field's
-constant table in the order of `handel::RnsLayout` (csrc/rns_mont.cuh), with
-the int8 planes of the two extension matrices the tensor-core products read.
+count, `rns_mul_resident.rows` by k_all (46 for BN254, 65 for
+BLS12-381) and `rns_mul_resident.devices` by card index, and `reset()`
+zeroes all four. The library is built and loaded at the first launch,
+never at import. `pack_constants` builds the field's constant table in the
+order of `handel::RnsLayout` (csrc/rns_mont.cuh), with the int8 planes of
+the two extension matrices the tensor-core products read.
 
 Columns per tile: a warp of the kernel owns tiles of 8 or 16 columns (one
 or two mma n-tiles), so a block of 4 warps covers 32 or 64 at a time
@@ -114,6 +115,8 @@ class RnsMulResidentKernel:
         self.widths: Counter[int] = Counter()
         # launches by row count (residue rows): which curve family's field ran
         self.rows: Counter[int] = Counter()
+        # launches by card index: which shard of a mesh ran
+        self.devices: Counter[int] = Counter()
         self.tile: int | None = None
         self._fn = None
         # launches come from several threads (a service's worker thread
@@ -127,12 +130,15 @@ class RnsMulResidentKernel:
             self.launches = 0
             self.widths.clear()
             self.rows.clear()
+            self.devices.clear()
 
-    def _count(self, cols: int, rows: int) -> None:
+    def _count(self, cols: int, rows: int, device: int | None = None) -> None:
         with self._lock:
             self.launches += 1
             self.widths[cols] += 1
             self.rows[rows] += 1
+            if device is not None:
+                self.devices[device] += 1
 
     def _entry(self):
         with self._lock:
@@ -204,7 +210,7 @@ class RnsMulResidentKernel:
             )
         if rc != 0:
             raise RuntimeError(f"rns_mul_resident launch failed: cudaError {rc}")
-        self._count(cols, k)
+        self._count(cols, k, dev.index)
         return out
 
 

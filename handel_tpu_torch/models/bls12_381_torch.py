@@ -57,11 +57,12 @@ class BLS12381TorchConstructor(BLS12381Constructor, BN254TorchConstructor):
         fp_backend: str | None = None,
         rns_resident: bool | None = None,
         rlc_rng: random.Random | None = None,
+        mesh_devices: int = 1,
     ):
         BN254TorchConstructor.__init__(
             self, batch_size=batch_size, device=device, warmup=warmup,
             batch_check=batch_check, curves=curves, fp_backend=fp_backend,
-            rns_resident=rns_resident, rlc_rng=rlc_rng,
+            rns_resident=rns_resident, rlc_rng=rlc_rng, mesh_devices=mesh_devices,
         )
 
 
@@ -78,9 +79,10 @@ class BLS12381TorchScheme(BLS12381Scheme):
         fp_backend: str | None = None,
         rns_resident: bool | None = None,
         rlc_rng: random.Random | None = None,
+        mesh_devices: int = 1,
     ):
         self.constructor = BLS12381TorchConstructor(
             batch_size=batch_size, device=device, warmup=warmup,
             batch_check=batch_check, fp_backend=fp_backend,
-            rns_resident=rns_resident, rlc_rng=rlc_rng,
+            rns_resident=rns_resident, rlc_rng=rlc_rng, mesh_devices=mesh_devices,
         )

@@ -80,8 +80,23 @@ for its pointer swaps (the caller has drained every launch by then:
 used on the verify stream, so the allocator reuses a released bank's
 memory only after the verify stream is past every read of it.
 
-Not ported yet (ROADMAP): meshes of several cards and the host failover
-breaker.
+Meshes (`mesh_devices=K`, parallel/sharding.py). The engine then spans K
+shard devices, the first of them its own: the registry is committed to the
+mesh once, one block a shard, and a launch runs the reference's staged
+sharded pipeline. The range class aggregates on the first shard's device
+(prefix table and hole patch, as on one device); the dense class unpacks
+the mask on the host, pads it and places it shard by shard, and each shard
+tree-sums its block, the partials gathered and combined on the first
+device. Either class then runs the sharded tail: the affine epilogue on
+the first device, and the candidates' pairing checks split over the
+shards, each on a pairing of its own, issued on the shard's own stream and
+joined by events before the verdicts' gather.
+RLC launches and the combine stay on the first device. With
+`device="cpu"` the K shards sit on the CPU; on the card they need K
+visible cards, or an explicit `mesh` (`make_mesh(K, devices=[...])`, which
+may repeat a card).
+
+Not ported (ROADMAP §C, deviation 1): the host failover breaker.
 """
 
 from __future__ import annotations
@@ -252,12 +267,22 @@ class BN254Device:
         fp_backend: str | None = None,
         rns_resident: bool | None = None,
         rlc_rng: random.Random | None = None,
+        mesh_devices: int = 1,
+        mesh=None,
     ):
         self.batch_check = rlc.validate_batch_check(batch_check)
         self._rlc_rng = rlc_rng
         self.rlc_stats = rlc.RlcStats()
         # launches whose lanes carried more than one message
         self.multi_msg_launches = 0
+        if mesh is not None:
+            if mesh_devices not in (1, mesh.size):
+                raise ValueError(
+                    f"mesh_devices={mesh_devices} but the mesh has {mesh.size} shards"
+                )
+            mesh_devices = mesh.size
+            if device is None and curves is None:
+                device = mesh.devices[0]
         self.curves = curves or self.Curves(device=device, backend=fp_backend)
         self.device = self.curves.device
         self.pairing = self.Pairing(self.curves, resident=rns_resident)
@@ -315,6 +340,47 @@ class BN254Device:
         self._staged: RegistryBank | None = None
         self.registry_stagings = 0
         self.registry_staged_ms = 0.0
+        # the mesh (module docstring): whole-mesh launch counters, read by
+        # the mesh lane's telemetry
+        self.mesh_devices = mesh_devices
+        self.mesh = None
+        self._sharded_sum = self._sharded_check = None
+        self.mesh_launches = 0
+        self.mesh_candidates = 0
+        if mesh_devices > 1:
+            self._build_mesh(mesh)
+
+    def _build_mesh(self, mesh) -> None:
+        """The sharded sum and check, the registry committed one block a
+        shard, and the dense mask's placement by partition rule."""
+        from handel_tpu_torch.parallel.sharding import (
+            commit_registry_sharded,
+            launch_partition_rules,
+            make_mesh,
+            make_shard_fns,
+            match_partition_rules,
+            sharded_masked_sum_g2,
+            sharded_pairing_check,
+        )
+
+        K = self.mesh_devices
+        if mesh is None:
+            # K cards; on the CPU (the caller's explicit choice) K shards there
+            mesh = make_mesh(K, devices=[self.device] * K if self.device.type == "cpu" else None)
+        if mesh.devices[0] != self.device:
+            raise ValueError(
+                f"the mesh's first shard is on {mesh.devices[0]}, the engine on {self.device}"
+            )
+        self.mesh = mesh
+        self._sharded_sum = sharded_masked_sum_g2(self.curves, mesh, self.n, self.batch_size)
+        self._sharded_check = sharded_pairing_check(self.pairing, mesh, self.batch_size)
+        self._reg_sharded = commit_registry_sharded(
+            mesh, self.bank.reg_x, self.bank.reg_y, self.n
+        )
+        self._mesh_pad = (-self.n) % K
+        self._mesh_put = make_shard_fns(
+            mesh, match_partition_rules(launch_partition_rules(), ["mask"])
+        )
 
     # -- registry bank and prefix table ---------------------------------------
 
@@ -375,10 +441,23 @@ class BN254Device:
         bank = self._staged
         if bank is None:
             raise RuntimeError("no staged registry: call stage_registry first")
+        if self.mesh is not None and bank.n != self.n:
+            # the sharded sum and check are built for the construction-time
+            # registry width
+            raise RuntimeError(
+                "mesh-sharded registry rotation requires an equal-size "
+                f"validator set (active {self.n}, staged {bank.n})"
+            )
         with self._dispatch_lock:
             if self._verify_stream is not None:
                 for t in bank.tensors():
                     t.record_stream(self._verify_stream)
+            if self.mesh is not None:
+                from handel_tpu_torch.parallel.sharding import commit_registry_sharded
+
+                self._reg_sharded = commit_registry_sharded(
+                    self.mesh, bank.reg_x, bank.reg_y, bank.n
+                )
             self.bank = bank
             if bank.n != self.n:
                 self.n = bank.n
@@ -1071,7 +1150,54 @@ class BN254Device:
         words32 = put(plan.words.view(np.int64)).view(torch.int32)  # (C, 2W)
         return (words32, put(plan.sig_x), put(plan.sig_y), put(plan.valid))
 
+    def _sharded_tail(self, agg, sig_x, sig_y, h_x, h_y, valid):
+        """The mesh's tail: the affine epilogue on the first device, then
+        the candidate-sharded product of pairings. Returns (C,) verdicts on
+        the first device."""
+        g2, F = self.curves.g2, self.curves.F
+        qx, qy, inf = g2.to_affine(agg)
+        ok = valid & ~inf
+        (bx0, bx1), (by0, by1) = self._b2
+        bx = (bx0.expand_as(qx[0]), bx1.expand_as(qx[1]))
+        by = (by0.expand_as(qy[0]), by1.expand_as(qy[1]))
+        checks = self._sharded_check(
+            ((h_x.expand_as(sig_x), h_y.expand_as(sig_y)), (sig_x, F.neg(sig_y))),
+            ((qx, qy), (bx, by)),
+            ok,
+        )
+        return checks & ok
+
+    def _run_mesh_plan(self, plan, staged, h_x, h_y):
+        """A launch over the mesh (module docstring): range aggregation on
+        the first device or the sharded masked sum, then the sharded tail."""
+        self.mesh_launches += 1
+        self.mesh_candidates += int(np.count_nonzero(plan.valid))
+        bank = self.bank
+        if plan.kind == "range":
+            lo, hi, miss_idx, miss_ok, sig_x, sig_y, valid = staged
+            agg = self._range_aggregate(
+                lo, hi, miss_idx, miss_ok, self._prefix, bank.reg_x, bank.reg_y,
+                plan.miss_k,
+            )
+            return self._sharded_tail(agg, sig_x, sig_y, h_x, h_y, valid)
+        _words32, sig_x, sig_y, valid = staged
+        # the staged sharded sum takes the (n, C) mask: unpacked on the host,
+        # padded to the shard multiple with False rows and placed one block
+        # a shard; the registry operands are the committed shards
+        mask = (
+            np.unpackbits(plan.words.view(np.uint8), axis=1, count=self.n, bitorder="little")
+            .view(np.bool_)
+            .T
+        )
+        if self._mesh_pad:
+            mask = np.pad(mask, ((0, self._mesh_pad), (0, 0)))
+        (rx0, rx1), (ry0, ry1) = self._reg_sharded
+        agg = self._sharded_sum(rx0, rx1, ry0, ry1, self._mesh_put["mask"](mask))
+        return self._sharded_tail(agg, sig_x, sig_y, h_x, h_y, valid)
+
     def _run_plan(self, plan, staged, h_x, h_y):
+        if self.mesh is not None:
+            return self._run_mesh_plan(plan, staged, h_x, h_y)
         bank = self.bank
         if plan.kind == "range":
             lo, hi, miss_idx, miss_ok, sig_x, sig_y, valid = staged
@@ -1136,7 +1262,8 @@ class BN254TorchConstructor(BN254Constructor):
     Marshal/unmarshal and single-signature verify stay on the host.
     `fp_backend` ("cios"/"rns") picks the field's multiply; an explicit
     `curves` wins, carrying its own field. `rns_resident`, `batch_check`
-    and `rlc_rng` as BN254Device."""
+    and `rlc_rng` as BN254Device. `mesh_devices` as BN254Device: K > 1
+    spans each engine over K cards, or K shards on the CPU."""
 
     Device = BN254Device
 
@@ -1150,8 +1277,10 @@ class BN254TorchConstructor(BN254Constructor):
         fp_backend: str | None = None,
         rns_resident: bool | None = None,
         rlc_rng: random.Random | None = None,
+        mesh_devices: int = 1,
     ):
         self.batch_size = batch_size
+        self.mesh_devices = mesh_devices
         self.batch_check = rlc.validate_batch_check(batch_check)
         self._rlc_rng = rlc_rng
         self.fp_backend = fp_backend
@@ -1169,6 +1298,7 @@ class BN254TorchConstructor(BN254Constructor):
             batch_check=self.batch_check,
             rns_resident=self.rns_resident,
             rlc_rng=self._rlc_rng,
+            mesh_devices=self.mesh_devices,
         )
         if self.warmup:
             self._device.warmup()
@@ -1221,10 +1351,12 @@ class BN254TorchScheme(BN254Scheme):
         fp_backend: str | None = None,
         rns_resident: bool | None = None,
         rlc_rng: random.Random | None = None,
+        mesh_devices: int = 1,
     ):
         self.constructor = BN254TorchConstructor(
             batch_size=batch_size, device=device, warmup=warmup,
             batch_check=batch_check, fp_backend=fp_backend,
             rns_resident=rns_resident, rlc_rng=rlc_rng,
+            mesh_devices=mesh_devices,
         )
 

@@ -2,10 +2,11 @@
 
 `BatchVerifierService` (batch_verifier.py) fuses every node's verify
 candidates into shared launches over a `DevicePlane` (plane.py) of device
-engines; mesh_plane.py holds the dual-mode routing policy it consults.
-rpc_verifier.py serves a service to processes without an engine over TCP,
-and telemetry.py samples the card's state for the metrics plane. Meshes of
-several cards are not ported yet (ROADMAP).
+engines; mesh_plane.py holds the dual-mode routing policy it consults and
+the mesh lane's engines, and sharding.py the mesh one engine spans
+(`BN254Device(mesh_devices=K)`). rpc_verifier.py serves a service to
+processes without an engine over TCP, and telemetry.py samples the card's
+state for the metrics plane.
 """
 
 from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService

@@ -346,26 +346,37 @@ def host_plane(constructor, devices: int, batch_size: int = 64,
     ])
 
 
-def bn254_plane(registry_pubkeys, devices: int, batch_size: int = 16) -> DevicePlane:
+def bn254_plane(registry_pubkeys, devices: int, batch_size: int = 16,
+                placement=None, warmup: bool = True) -> DevicePlane:
     """A plane of K BN254 engines, one on each of the cards cuda:0 ..
-    cuda:K-1, the engines of a card sharing one `BN254Curves`. Each engine
-    commits the registry to its card once and builds its first-use state
-    (the kernel library, the prefix table, the combine classes) before the
-    plane is returned, as a service over it needs (models/bn254_torch.py).
+    cuda:K-1, or on each device of `placement` (a list of K devices that
+    may repeat one, e.g. `["cpu"] * 8` for a CPU rehearsal), the engines of
+    a device sharing one `BN254Curves`. Each engine commits the registry to
+    its device once and, with `warmup`, builds its first-use state (the
+    kernel library, the prefix table, the combine classes) before the plane
+    is returned, as a service over it needs (models/bn254_torch.py).
     Raises when fewer than K cards are visible."""
     import torch
 
     from handel_tpu_torch.models.bn254_torch import BN254Device
     from handel_tpu_torch.ops.curve import BN254Curves
+    from handel_tpu_torch.utils.torchenv import resolve_device
 
     k = max(1, devices)
-    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if k > visible:
-        raise ValueError(f"requested {k} cards but only {visible} visible")
+    if placement is None:
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if k > visible:
+            raise ValueError(f"requested {k} cards but only {visible} visible")
+        placement = [torch.device("cuda", i) for i in range(k)]
+    elif len(placement) != k:
+        raise ValueError(f"{len(placement)} placements for {k} engines")
+    curves: dict = {}
     engines = []
-    for i in range(k):
-        curves = BN254Curves(device=torch.device("cuda", i))
-        eng = BN254Device(registry_pubkeys, batch_size=batch_size, curves=curves)
-        eng.warmup()
+    for d in map(resolve_device, placement):
+        if d not in curves:
+            curves[d] = BN254Curves(device=d)
+        eng = BN254Device(registry_pubkeys, batch_size=batch_size, curves=curves[d])
+        if warmup:
+            eng.warmup()
         engines.append(eng)
     return DevicePlane(engines)

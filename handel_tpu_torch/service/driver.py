@@ -19,8 +19,10 @@ span sessions, messages and registries. A service over a card engine
 plugs in the port's `BN254Device` instead (models/bn254_torch.py), as the
 sim's node does; `serve` itself runs the fake or a host scheme and
 refuses a device scheme with the reference's message, since its sessions
-each bring their own registry. The reference's whole-mesh latency lane
-(`mesh_devices`) is not ported yet (ROADMAP item 7).
+each bring their own registry. `mesh_devices = K` attaches the reference's
+whole-mesh latency lane beside the throughput lanes: a `HostMeshDevice`
+(parallel/mesh_plane.py) modeling one launch over K devices, which small
+gold-tier groups ride.
 """
 
 from __future__ import annotations
@@ -216,11 +218,21 @@ class MultiSessionCluster:
             recorder=recorder,
         )
         if mesh_devices > 0:
-            # the reference's latency plane ([service] mesh_devices = K):
-            # one whole-mesh lane beside the per-card throughput lanes
-            raise NotImplementedError(
-                "service.mesh_devices is not ported yet: parallel/"
-                "mesh_plane.py enable_latency_plane (ROADMAP item 7)"
+            # latency plane ([service] mesh_devices = K): one whole-mesh
+            # lane beside the per-card throughput lanes — small gold-tier
+            # launch groups ride it (parallel/mesh_plane.py ModePolicy)
+            from handel_tpu_torch.parallel.mesh_plane import (
+                enable_latency_plane,
+                host_mesh_engine,
+            )
+
+            enable_latency_plane(
+                self.service,
+                host_mesh_engine(
+                    scheme.constructor,
+                    devices=mesh_devices,
+                    batch_size=mesh_batch_size,
+                ),
             )
         # one shared ring across every session's nodes AND the verify
         # plane: session-tagged spans end to end (core/handel.py _sargs,

@@ -429,8 +429,8 @@ class SimConfig:
     retrials: int = 1
     batch_size: int = 16
     shared_verifier: bool = False
-    # device-mesh width for the verification plane (>1 = sharded kernels,
-    # not ported yet: ROADMAP item 7)
+    # device-mesh width for the verification plane (>1 = one engine over K
+    # shards, parallel/sharding.py)
     mesh_devices: int = 1
     # Field modmul kernel for device schemes: "cios" (kernel B1,
     # csrc/fp_mont.cu) or "rns" (residue-number-system products, kernel B2,

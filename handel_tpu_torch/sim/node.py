@@ -46,8 +46,11 @@ verifies on arrival with the scheme's host `verify`, and the process builds
 no shared verifier, serves none and reads no device telemetry, whatever
 scheme the TOML names.
 
-Cut from the reference, raising NotImplementedError naming its ROADMAP item
-(`check_ported`): a mesh wider than one device.
+`mesh_devices = K > 1` builds the device scheme over a mesh of K shards
+(models/bn254_torch.py `BN254Device(mesh_devices=K)`), as the reference's
+node builds its scheme with that width: K cards, or K shards on the CPU
+under HANDEL_TORCH_DEVICE=cpu; a host with fewer cards raises, naming the
+count.
 The node ignores `[service]`, as the reference's does: its `batch_check` is
 for the `serve` and `load` paths, and a node's verifier checks per
 candidate.
@@ -57,8 +60,8 @@ kernels:` line (JSON) before `finished OK`: its kernel launch counts, over
 the whole process and between the START and END barriers, B1's launches by
 column count, its peak device memory, whether it initialised CUDA at all,
 the calls and seconds of the store's device combines, which run on the
-event loop beside the service's dispatches, and its shared verifier's
-launches, and under `weighted` the stake gate, each honest node's final
+event loop beside the service's dispatches, its shared verifier's
+launches and its engine's launches over a mesh (`mesh`), and under `weighted` the stake gate, each honest node's final
 stake and the departures it marked. Its nodes stay in the round until the END barrier
 (`serve_until_end`, ROADMAP §C deviation 5).
 """
@@ -93,7 +96,7 @@ from handel_tpu_torch.sim.adversary import (
     check_threshold_reachable,
 )
 from handel_tpu_torch.sim.allocator import new_allocator
-from handel_tpu_torch.sim.config import SimConfig, load_config
+from handel_tpu_torch.sim.config import load_config
 from handel_tpu_torch.sim.monitor import CounterIO, HistogramIO, Sink, TimeMeasure
 from handel_tpu_torch.sim.sync import STATE_END, STATE_START, SyncSlave
 
@@ -101,19 +104,6 @@ MSG = b"handel-tpu simulation message"
 # how long a verifier-serving process waits, after the END barrier, for its
 # RPC clients to close their links before it stops serving (C4)
 RPC_CLIENTS_CLOSE_S = 10.0
-
-
-def check_ported(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for the first part of `cfg` that the port
-    does not have yet, naming its ROADMAP item."""
-    parts = [
-        (cfg.mesh_devices > 1, f"mesh_devices = {cfg.mesh_devices}", "7"),
-    ]
-    for on, what, item in parts:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to handel_tpu_torch yet (ROADMAP item {item})"
-            )
 
 
 def stall_timeout_s(max_timeout_s: float) -> float:
@@ -196,7 +186,6 @@ def _b1_widths() -> dict[str, int]:
 async def run_node_process(args) -> int:
     cfg = load_config(args.config)
     run = cfg.runs[args.run]
-    check_ported(cfg)
 
     # live telemetry plane (core/metrics.py): the HTTP endpoint comes up
     # BEFORE the scheme builds, so /healthz answers during a long prepare
@@ -249,6 +238,7 @@ async def run_node_process(args) -> int:
         dev = device_from_env() if not args.verifier else None
         scheme_kw = {
             "batch_size": cfg.batch_size,
+            "mesh_devices": cfg.mesh_devices,
             "fp_backend": cfg.fp_backend,
             # residency only means something on the rns backend; None
             # lets the pairing layer decide (and avoids the
@@ -636,6 +626,11 @@ async def run_node_process(args) -> int:
             "verifier_launches": (
                 shared_service.launches if shared_service is not None else None
             ),
+            # the engine's shards and its launches over them (mesh_devices)
+            "mesh": {
+                "devices": cfg.mesh_devices,
+                "launches": getattr(scheme.constructor._device, "mesh_launches", 0),
+            },
             # the weighted gate (None on a count run), each honest node's
             # final stake and the departures it marked (its process's
             # churners)

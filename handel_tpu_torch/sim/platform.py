@@ -34,7 +34,6 @@ from handel_tpu_torch.sim import keys as simkeys
 from handel_tpu_torch.sim.allocator import new_allocator
 from handel_tpu_torch.sim.config import SimConfig, dump_config
 from handel_tpu_torch.sim.monitor import Monitor
-from handel_tpu_torch.sim.node import check_ported
 from handel_tpu_torch.sim.sync import STATE_END, STATE_START, SyncMaster
 
 
@@ -223,7 +222,6 @@ class LocalhostPlatform:
     async def start_run(self, run_index: int) -> "RunResult":
         cfg = self.cfg
         run = cfg.runs[run_index]
-        check_ported(cfg)
         scheme_kw = {}
         # a baseline's nodes verify on the host (sim/node.py, deviation 8)
         scheme_name = host_scheme_name(cfg.scheme) if cfg.baseline else cfg.scheme

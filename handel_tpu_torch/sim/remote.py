@@ -35,8 +35,7 @@ other process verifies through it (`--verifier`): those build their scheme
 on the CPU and never touch the card (sim/node.py). The device is the one
 $HANDEL_TORCH_DEVICE names (utils/torchenv.py), passed on to every node
 process. As the localhost platform does, the orchestrator generates keys
-on the host (no CUDA context), refuses a config the port has not ported
-(sim/node.py `check_ported`), and keeps each node process's output as
+on the host (no CUDA context) and keeps each node process's output as
 `node_<run>_<host>_<process>.out` / `.err` in its workdir.
 
 TOML:
@@ -65,7 +64,6 @@ from handel_tpu_torch.sim import keys as simkeys
 from handel_tpu_torch.sim.allocator import new_allocator
 from handel_tpu_torch.sim.config import HostSpec, SimConfig, dump_config
 from handel_tpu_torch.sim.monitor import Monitor
-from handel_tpu_torch.sim.node import check_ported
 from handel_tpu_torch.sim.sync import STATE_END, STATE_START, SyncMaster
 
 
@@ -285,7 +283,6 @@ class RemotePlatform:
         cfg = self.cfg
         run = cfg.runs[run_index]
         hosts = cfg.hosts
-        check_ported(cfg)
         # keygen is host work: the orchestrator's scheme holds no CUDA
         # context while the node processes run
         scheme = new_scheme(

@@ -340,19 +340,19 @@ def test_bls12_381_host_ops_equal_the_reference_table():
 
 @pytest.mark.parametrize("fp_backend", ["cios", "rns"])
 def test_sim_node_takes_the_device_scheme(fp_backend):
-    """A sim config naming bls12-381-cuda passes the node's `check_ported`
-    (nothing BLS-specific is refused) and builds the device scheme the
-    way sim/node.py does."""
+    """A sim config naming bls12-381-cuda builds the device scheme the way
+    sim/node.py does, its mesh width included (nothing BLS-specific is
+    refused)."""
     from handel_tpu_torch.models.bls12_381_torch import BLS12381TorchScheme
     from handel_tpu_torch.sim.config import RunConfig, SimConfig
-    from handel_tpu_torch.sim.node import check_ported
 
     cfg = SimConfig(network="udp", scheme="bls12-381-cuda", shared_verifier=True,
-                    batch_size=4, fp_backend=fp_backend,
+                    batch_size=4, fp_backend=fp_backend, mesh_devices=2,
                     runs=[RunConfig(nodes=4, threshold=3, processes=1)])
-    check_ported(cfg)
     assert preg.is_device_scheme(cfg.scheme)
-    scheme = preg.new_scheme(cfg.scheme, batch_size=cfg.batch_size, fp_backend=cfg.fp_backend,
+    scheme = preg.new_scheme(cfg.scheme, batch_size=cfg.batch_size,
+                             mesh_devices=cfg.mesh_devices, fp_backend=cfg.fp_backend,
                              rns_resident=None, device="cpu")
     assert isinstance(scheme, BLS12381TorchScheme)
     assert scheme.constructor.curves.F.backend == fp_backend
+    assert scheme.constructor.mesh_devices == 2

@@ -1097,3 +1097,54 @@ def test_weighted_churning_round_on_card_matches_the_cpu_engine(card):
     assert _replayed(ours, cpu_engine) == card_verdicts
     assert _replayed(ours, BN254Scheme().constructor) == card_verdicts
     assert [v for _, v in cpu.log] == _replayed(cpu, BN254Scheme().constructor)
+
+
+def test_mesh_launch_on_card_equals_the_single_card_engine(card):
+    """A K = 2 mesh (cuda:0 and cuda:1 when two cards are visible, else two
+    shards on cuda:0) over a registry that 2 does not divide: a range and a
+    dense launch give the single-card engine's verdicts, B1 launching inside
+    each on every shard's card, and the host oracle replays the forgery and
+    an honest candidate to the same verdicts."""
+    from handel_tpu_torch.core.bitset import BitSet
+    from handel_tpu_torch.kernels.fp_mont import mont_mul
+    from handel_tpu_torch.models.bn254 import (
+        BN254PublicKey,
+        BN254Scheme,
+        BN254Signature,
+        hash_to_g1,
+    )
+    from handel_tpu_torch.models.bn254_torch import BN254Device
+    from handel_tpu_torch.parallel.mesh_plane import bn254_mesh_engine
+    from handel_tpu_torch.parallel.sharding import make_mesh
+
+    rng = random.Random(15)
+    n = 81  # the second shard's last point is edge padding
+    sks = [rng.randrange(1, 1 << 30) for _ in range(n)]
+    pks = [BN254PublicKey(bn.g2_mul(bn.G2_GEN, s)) for s in sks]
+    h = hash_to_g1(b"m")
+
+    def cand(idx, forge=False):
+        bs = BitSet(n)
+        for i in idx:
+            bs.set(i, True)
+        k = (sum(sks[i] for i in idx) + forge) % bn.R
+        return bs, BN254Signature(bn.g1_mul(h, k))
+
+    devices = ([torch.device("cuda", i) for i in range(2)]
+               if torch.cuda.device_count() >= 2 else [card, card])
+    eng = bn254_mesh_engine(pks, 2, batch_size=4, mesh=make_mesh(2, devices=devices))
+    single = BN254Device(pks, batch_size=4, device=card)
+    range_reqs = [cand(range(3, 60)), cand(range(5, 9), forge=True), cand([7, 9, 11])]
+    dense = [cand([0, 80]), cand(range(0, 81, 3)), cand([1, 78], forge=True)]
+    for reqs, kind in ((range_reqs, "range"), (dense, "dense")):
+        assert eng._pack_requests(reqs).kind == kind
+        before, launches = dict(mont_mul.devices), mont_mul.launches
+        got = eng.batch_verify(b"m", reqs)
+        assert mont_mul.launches > launches
+        assert {d for d, c in mont_mul.devices.items() if c != before.get(d, 0)} == {
+            d.index for d in devices}
+        assert got == single.batch_verify(b"m", reqs)
+    assert eng.mesh_launches == 2 and eng.mesh_candidates == 6
+    host = BN254Scheme().constructor
+    replay = [range_reqs[1], dense[1]]
+    assert host.batch_verify(b"m", pks, replay) == eng.batch_verify(b"m", replay) == [False, True]

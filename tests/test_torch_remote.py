@@ -85,11 +85,20 @@ def test_remote_platform_needs_hosts_and_names_the_platforms(tmp_path):
         new_platform("remote", cfg, str(tmp_path))
 
 
-def test_remote_platform_refuses_what_the_port_has_not_ported(tmp_path):
+def test_remote_platform_stages_and_runs_a_mesh_config(tmp_path):
+    """`mesh_devices = 2`, which the platform refused until the mesh was
+    ported, passes its staging: both hosts get the config carrying the
+    mesh width and the registry, and the run (the fake scheme, on which the
+    width changes nothing, as in the reference) succeeds."""
     cfg = remote_cfg(pconfig, tmp_path, "port")
-    cfg.mesh_devices = 4
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 7\b"):
-        asyncio.run(p_run(cfg, str(tmp_path / "out"), platform="remote"))
+    cfg.mesh_devices = 2
+    res = run_remote(p_run, cfg, tmp_path / "out")
+    assert res.ok
+    for host in ("hostA", "hostB"):
+        staged = tmp_path / "port" / host
+        assert "mesh_devices = 2" in (staged / "sim.toml").read_text()
+        assert (staged / "registry_0.csv").exists()
+        assert (staged / "handel_tpu_torch" / "parallel" / "sharding.py").exists()
 
 
 def test_remote_platform_two_hosts_beside_reference(tmp_path):

@@ -234,9 +234,31 @@ def test_multi_session_cluster_as_the_reference(with_alerts):
     assert "tier_quantiles" in keys
 
 
-def test_the_mesh_lane_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        pdriver.MultiSessionCluster(1, 4, mesh_devices=2)
+def mesh_cluster(pkg):
+    """A gold-tier cluster with `mesh_devices = 2`: the lane the driver
+    attaches, and what its run routed through it."""
+    c = pkg.driver.MultiSessionCluster(2, 8, devices=2, mesh_devices=2, mesh_batch_size=8,
+                                       tier_cycle=("gold",))
+    try:
+        (lane,) = c.service.plane.mesh_lanes()
+        eng = lane.engine
+        attached = (type(eng).__name__, eng.mesh_devices, eng.batch_size,
+                    len(c.service.plane.throughput_pool()))
+        summary = asyncio.run(c.run(timeout=60.0))
+        vals = c.service.values()
+        return (attached, summary["completed"], eng.mesh_launches >= 1,
+                vals["modeLatencyLaunches"] >= 1.0, vals["meshLaunches"] >= 1.0,
+                vals["meshFallbacks"], vals["failoverBatches"])
+    finally:
+        c.stop()
+
+
+def test_the_mesh_lane_rides_a_host_mesh_device_as_in_the_reference():
+    """`MultiSessionCluster(..., mesh_devices=2)` attaches a HostMeshDevice
+    mesh lane of two devices beside the two throughput lanes, and the gold
+    sessions' groups ride it, as tests/test_mesh_plane.py's cluster does."""
+    got = both(mesh_cluster)
+    assert got == (("HostMeshDevice", 2, 8, 2), 2, True, True, True, 0.0, 0.0)
 
 
 # -- merge_summaries and the report checks ------------------------------------------------

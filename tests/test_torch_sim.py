@@ -38,7 +38,6 @@ from handel_tpu_torch.sim import config as pconfig
 from handel_tpu_torch.sim import keys as pkeys
 from handel_tpu_torch.sim import monitor as pmon
 from handel_tpu_torch.sim import sync as psync
-from handel_tpu_torch.sim.node import check_ported
 from handel_tpu_torch.sim.platform import LocalhostPlatform as PPlatform
 from handel_tpu_torch.sim.platform import free_ports
 
@@ -485,7 +484,7 @@ def test_device_from_env(monkeypatch):
             device_from_env()
 
 
-# -- parts not ported yet --------------------------------------------------
+# -- parts the node once refused -------------------------------------------
 
 
 def unported(edit):
@@ -494,34 +493,22 @@ def unported(edit):
     return cfg
 
 
-UNPORTED = {
-    "mesh_devices": (lambda c: setattr(c, "mesh_devices", 4), "7"),
-}
-# once refused by the node, now ported: stake weights and departures, and
-# the comparison baselines
+# once refused by the node, now ported: stake weights and departures, the
+# comparison baselines, and a mesh of several devices
 LIFTED = {
     "baseline": lambda c: setattr(c, "baseline", "gossipsub"),
     "churner": lambda c: setattr(c.runs[0].adversaries, "churner", 1),
+    "mesh_devices": lambda c: setattr(c, "mesh_devices", 4),
     "weights": lambda c: setattr(c.scenario, "weight_profile", "linear"),
 }
 
 
-@pytest.mark.parametrize("part", sorted(UNPORTED))
-def test_each_unported_option_raises_naming_its_roadmap_item(part):
-    edit, item = UNPORTED[part]
-    cfg = unported(edit)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
-        check_ported(cfg)
-    check_ported(pconfig.SimConfig(runs=[pconfig.RunConfig()]))  # the base run passes
-
-
 @pytest.mark.parametrize("part", sorted(LIFTED))
 def test_lifted_options_pass_the_node_check(part, tmp_path):
-    """The churner role and stake weights run in the port's node: the
-    check passes, and the config dumps to the same text in both
-    packages."""
+    """The churner role, stake weights, the baselines and the mesh run in
+    the port's node, which refuses none of them: the config dumps to the
+    same text in both packages."""
     cfg = unported(LIFTED[part])
-    check_ported(cfg)
     text = pconfig.dump_config(cfg)
     path = tmp_path / "lifted.toml"
     path.write_text(text)
@@ -537,7 +524,6 @@ def test_service_batch_check_rlc_is_ignored_by_the_node_as_by_the_reference(tmp_
     cfg.scheme = "bn254-cuda"
     cfg.service.sessions = 2  # [service] dumps only with sessions
     cfg.service.batch_check = "rlc"
-    check_ported(cfg)
     text = pconfig.dump_config(cfg)
     assert 'batch_check = "rlc"' in text
     path = tmp_path / "rlc.toml"
@@ -662,6 +648,30 @@ def test_localhost_bn254_cuda_on_the_cpu_engine(tmp_path, monkeypatch):
     (kern,) = [json.loads(ln.split(": ", 1)[1]) for ln in out.splitlines()
                if ln.startswith("node process kernels: ")]
     assert kern["verifier_launches"] == row["device_verifier_verifierLaunches_sum"]
+
+
+def test_localhost_bn254_cuda_on_a_two_shard_cpu_mesh(tmp_path, monkeypatch):
+    """`mesh_devices = 2` on the device scheme: each node process builds its
+    engine over two shards of the CPU (HANDEL_TORCH_DEVICE=cpu), as the
+    reference's node builds its scheme over two forced host devices; the
+    round completes and the shared verifier's launches ran over the mesh."""
+    monkeypatch.setenv("HANDEL_TORCH_DEVICE", "cpu")
+    cfg = pconfig.SimConfig(
+        network="udp", scheme="bn254-cuda", shared_verifier=True, batch_size=4,
+        mesh_devices=2, max_timeout_s=600.0,
+        runs=[pconfig.RunConfig(nodes=4, threshold=3, processes=1)],
+    )
+    res = run_platform(PPlatform, cfg, tmp_path)
+    assert res.ok, res.returncodes
+    _header, row = header_and_row(res.csv_path)
+    assert row["device_verifier_verifierLaunches_sum"] >= 1
+    assert row["device_verifier_failoverBatches_sum"] == 0
+    out = (tmp_path / "node_0_0.out").read_text()
+    assert "node process finished OK" in out
+    (kern,) = [json.loads(ln.split(": ", 1)[1]) for ln in out.splitlines()
+               if ln.startswith("node process kernels: ")]
+    # the warmup's launch and every verifier launch rode the mesh
+    assert kern["mesh"] == {"devices": 2, "launches": kern["verifier_launches"] + 1}
 
 
 def test_device_scheme_without_a_card_fails_without_falling_back(tmp_path, monkeypatch):
