@@ -354,21 +354,44 @@ Phases, one line each, any failure exits non-zero with no result line:
               of each class, phase 10's honest single-message range case
               and phase 12's RPC case's direct cross-check launch were cut
               to pay for it.
+17. stages    the verify launch's stage profile
+              (handel_tpu_torch/scripts/verify_profile.py `profile`) over
+              phase 4's cios and rns engines and its range requests, with
+              their forged lanes 1-3: one range launch packed and staged by
+              the engine's own packer, then cut at its stage boundaries (range
+              aggregation, the affine step, the Miller loop at 2C lanes, the
+              product and final exponentiation with the comparison to 1),
+              each stage the launch's own method. Per backend: the stages,
+              composed, give the full launch's verdicts, and those are the
+              known ones (lanes 1-3 rejected); the stages' kernel launches add
+              up to the full launch's; B1 runs in every cios stage and B2 in
+              none; on rns B2 runs in the Miller loop and the final
+              exponentiation (the resident pairing) and no kernel in the
+              aggregation and the affine step (the per-mul RNS product, plain
+              torch), B1 nowhere. Each stage and the
+              full launch are the p50 of 2 calls and the pipelined per-launch
+              time is one round of 2 launches (`measure_pipelined`), all
+              without warm calls: phase 4's launches ran these engines
+              before. The line gives each stage's p50 ms and launches, the
+              stage sum beside the full launch, the pipelined per-launch ms
+              and the dispatch floor (`x + 1` on an (8, 128) tensor and a
+              16-word fetch). It runs right after phase 16, before phase 14
+              rotates phase 4's engine.
 
 Two processes share the card. The first runs phases 1-3 and 6 alone, so
 that their timings see no other work, and then starts the second
 (`chip_smoke.py --worker DIR`, WORKER_PHASES: phases 7, 8's rounds, 9,
-12's sim, 13 and 15, in that order), which needs none of phase 4's state.
-The first goes on with phases 4, 5, 16, 8's load, 10, 11, 12's RPC and ban
-cases and 14, then prints the second's lines and takes its figures; a
+12's sim, 13, 15 and 11, in that order), which needs none of phase 4's
+state. The first goes on with phases 4, 5, 16, 17, 8's load, 10, 12's RPC
+and ban cases and 14, then prints the second's lines and takes its figures; a
 failure of either fails the run, and a failure of the first, or a SIGTERM,
 stops the second and the node processes of its sim. Each process issues
 its launches from a core of its own: the launches are host-bound, so
 the two lists overlap, and every wall from phase 4 on is taken beside the
 other process's work on the card.
 
-Each path of phases 4, 6, 7, 8, 10, 11, 12's RPC and ban cases, 14 and 16
-is one main-path run: every kernel's launch count (its process's own) is
+Each path of phases 4, 6, 7, 8, 10, 11, 12's RPC and ban cases, 14, 16 and
+17 is one main-path run: every kernel's launch count (its process's own) is
 set to 0 just before it and read just after; phases 9's, 12's, 13's and
 15's sim counts are the node processes' own, which start at 0. Then one
 JSON line of kernel figures, the seconds each phase took in each process
@@ -512,14 +535,19 @@ MESH_BATCH = 8
 # the lanes of phase 16's launches whose signatures are forged
 MESH_FORGED_RANGE = 5
 MESH_FORGED_DENSE = 2
+# phase 17: calls a stage's p50 is taken over, and the pipelined round's
+# launches (one round), on engines that phase 4 warmed
+STAGE_TRIALS = 2
+STAGE_DEPTH = 2
 # the phases that run in a second process of the script (`--worker`), in
-# this order, beside the first process's phases 4, 5, 16, 8's load, 10, 11,
+# this order, beside the first process's phases 4, 5, 16, 17, 8's load, 10,
 # 12's RPC and ban cases and 14: they need none of phase 4's state, and each
 # process issues its launches from a core of its own, so that the script
 # takes about the longer of the two lists (one process took their sum,
-# 967-1,072 s of the 1,200 on an H100 80GB HBM3 at 700 W)
+# 967-1,072 s of the 1,200 on an H100 80GB HBM3 at 700 W). Phase 11 moved
+# here when phase 17 came, so that the first process stays the shorter
 WORKER_PHASES = ("round", "service_round", "service_round_rns", "sim", "adversarial",
-                 "fleet", "weighted")
+                 "fleet", "weighted", "bls12_381")
 # the first process's wait for the second, from the script's start: a
 # second process still running then is stopped, and the run fails
 WORKER_DEADLINE_S = 1140.0
@@ -3290,6 +3318,63 @@ def mesh_phase(cons, pks, sks, counters, prng, p50_ms) -> dict:
     return fig
 
 
+def stages_phase(cons, rcons, requests, expect, counters) -> dict:
+    """Phase 17, one main-path run a backend: the stage profile of phase 4's
+    range launch on its cios and rns engines (module docstring). Raises on
+    a wrong verdict, a launch sum that does not hold, or a kernel where it
+    must not run; returns the figures by backend."""
+    from handel_tpu_torch.scripts.verify_profile import STAGES, profile
+
+    t_phase = time.perf_counter()
+    want = list(expect) + [False] * (LANES - len(expect))
+    figs = {}
+    # the stages that run the backend's kernel: on rns the aggregation and
+    # the affine step run the per-mul RNS product (ops/rns.py RnsField.mul,
+    # plain torch), and only the resident pairing runs B2
+    for label, c, kernel, on_kernel in (
+            ("cios", cons, "fp_mont_mul", STAGES),
+            ("rns", rcons, "rns_mont_mul_resident", ("miller_loop_2c", "final_exp"))):
+        engine = c._device
+        zero_counts(counters)
+        rec, composed, full = profile(engine, requests, engine._h_point(MSG), STAGE_TRIALS,
+                                      depth=STAGE_DEPTH, pipelined_trials=1, warm=False)
+        launches = {k: n.launches for k, n in counters.items()}
+        if composed != full:
+            bad = [j for j, (a, b) in enumerate(zip(composed, full)) if a != b]
+            raise AssertionError(f"phase 17 {label}: composed stages != full launch at lanes {bad}")
+        if full != want:
+            bad = [j for j, (a, b) in enumerate(zip(full, want)) if a != b]
+            raise AssertionError(f"phase 17 {label}: verdicts wrong at lanes {bad}")
+        if any(rec["launch_sum"]["difference"].values()):
+            raise AssertionError(f"phase 17 {label}: stage launches do not add up to the "
+                                 f"full launch's: {rec['launch_sum']}")
+        for stage in STAGES:
+            got = rec["launches"][stage]
+            if (got[kernel] > 0) != (stage in on_kernel) or any(
+                    n for k, n in got.items() if k != kernel):
+                raise AssertionError(f"phase 17 {label}: {stage} launched {got}")
+        # the other backend's kernel, and the lab's, run nowhere here
+        idle = [k for k in counters if k != kernel and launches[k]]
+        if launches[kernel] == 0 or idle:
+            raise AssertionError(f"phase 17 {label}: kernel launches {launches}")
+        figs[label] = {"launches": launches[kernel], "record": rec}
+        line("stages", path=label, lanes=LANES, candidates=len(expect),
+             registry=N_REGISTRY, verdicts_ok=True, composed_equals_full=True,
+             stage_p50_ms={s: rec[f"{s}_ms"] for s in STAGES},
+             stage_sum_ms=rec["stage_sum_ms"], full_launch_ms=rec["full_launch_ms"],
+             stage_sum_over_full_launch=rec["stage_sum_over_full_launch"],
+             pipelined_depth=rec["pipelined_depth"],
+             pipelined_per_launch_ms=rec["pipelined_per_launch_ms"],
+             pipelined_over_full_launch=rec["pipelined_over_full_launch"],
+             dispatch_rt_ms=rec["dispatch_rt_ms"],
+             launches_by_stage={s: rec["launches"][s][kernel] for s in
+                                (*STAGES, "full_launch")},
+             launch_sum=rec["launch_sum"], kernel_launches=launches,
+             trials=STAGE_TRIALS)
+    figs["seconds"] = time.perf_counter() - t_phase
+    return figs
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from handel_tpu_torch.kernels.fp_mont import mont_mul
@@ -3320,6 +3405,9 @@ def worker_phases(dev, counters, clock: PhaseClock) -> dict:
         torch.cuda.empty_cache()  # the sim's node processes share the card
         figs[name] = phase()
         clock(name)
+    torch.cuda.empty_cache()
+    figs["bls12_381"] = bls_phase(dev, counters)
+    clock("bls12_381")
     assert tuple(figs) == WORKER_PHASES
     return figs
 
@@ -3421,7 +3509,7 @@ def main(argv: list[str] | None = None) -> int:
 def first_process(worker_dir: str, workers: list) -> int:
     """The script's first process: phases 1-6, then the second process
     (WORKER_PHASES, started into `workers`, its files in `worker_dir`)
-    beside phases 4, 5, 16, 8's load, 10, 11, 12's RPC and ban cases and
+    beside phases 4, 5, 16, 17, 8's load, 10, 12's RPC and ban cases and
     14; then the kernels line and the result."""
     import torch
 
@@ -3555,14 +3643,14 @@ def first_process(worker_dir: str, workers: list) -> int:
     # registry phase 16 uses
     mesh = mesh_phase(cons, pks, sks, counters, prng, cios_p50)
     done("mesh")
+    stages = stages_phase(cons, rcons, *reqs["range"], counters)
+    done("stages")
     load = service_load_phase(cons, pks, sks, counters, prng)
     done("service_load")
     rlc = rlc_phase(cons, rcons, sks, pks, counters, prng, {
         "cios_range": cios_p50["range"], "cios_dense": cios_p50["dense"],
         "rns_range": rns_p50["range"]})
     done("rlc")
-    bls = bls_phase(dev, counters)
-    done("bls12_381")
     rpc = rpc_phase(cons, pks, sks, counters, prng)
     done("rpc")
     ban = ban_case(cons, pks, sks, counters)
@@ -3571,7 +3659,7 @@ def first_process(worker_dir: str, workers: list) -> int:
     done("lifecycle")
     joined = join_worker(workers[0], worker_dir, t_start + WORKER_DEADLINE_S)
     done("wait_for_second_process")
-    rnd, srnd, srnd_rns, sim, adv, fleet, weighted = (
+    rnd, srnd, srnd_rns, sim, adv, fleet, weighted, bls = (
         joined["figures"][name] for name in WORKER_PHASES)
     on_service = {
         key: {"launches": f["kernel_launches"]["fp_mont_mul"],
@@ -3603,6 +3691,13 @@ def first_process(worker_dir: str, workers: list) -> int:
                     for label, fig in at_widths.items() if label.startswith("bls_")},
                 "checked_widths": next(v for k, v in bls["checked_widths"].items()
                                        if k.startswith(kname))}
+
+    def on_stages(backend):
+        """The kernel's launches in phase 17 on its backend, in all and by
+        stage (the full launch's beside them)."""
+        rec = stages[backend]["record"]
+        return {"launches": stages[backend]["launches"],
+                "by_stage": {s: n[rec["kernel"]] for s, n in rec["launches"].items()}}
 
     def entry(kname, source, replaces, launches, widths, fig, **extra):
         return {
@@ -3652,7 +3747,8 @@ def first_process(worker_dir: str, workers: list) -> int:
                        "by_card": mesh["b1_by_card"],
                        "by_launch": {k: f["kernel_launches"].get("fp_mont_mul", 0)
                                      for k, f in mesh["launches"].items()},
-                       "widths": mesh["widths"].get("fp_mont_mul", {})}),
+                       "widths": mesh["widths"].get("fp_mont_mul", {})},
+              on_stages=on_stages("cios")),
         entry("rns_mont_mul_resident", "handel_tpu_torch/csrc/rns_mont.cu",
               "handel_tpu/ops/rns.py:571", rns["rns_mont_mul_resident"],
               [*r46.values(), *r65.values()], r46["f12_mul"],
@@ -3661,7 +3757,8 @@ def first_process(worker_dir: str, workers: list) -> int:
                   "launches": srnd_rns["kernel_launches"]["rns_mont_mul_resident"],
                   "widths": srnd_rns["widths"].get("rns_mont_mul_resident", {})}},
               on_rlc=on_rlc("rns_mont_mul_resident"),
-              on_bls12_381=on_bls("rns_mont_mul_resident", "rns", r65)),
+              on_bls12_381=on_bls("rns_mont_mul_resident", "rns", r65),
+              on_stages=on_stages("rns")),
         *(entry(kname, "handel_tpu_torch/csrc/lab_mont.cu", "scripts/fp_kernel_lab.py:234",
                 lab["executed"][kname], list(b3[kname].values()), b3[kname]["random+edges/16"],
                 captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])

@@ -53,11 +53,59 @@ the reference so each counterpart is easy to find:
                          barriers, the monitor's results CSV, byzantine
                          roles (adversary.py) and the trace analyzer
                          (trace_cli.py, the `trace` subcommand)
+  lifecycle/             validator-set rotation on the engines
+                         (epoch.py: EpochManager), the lane autoscaler, the
+                         critical-path autotuner and the controller ticking
+                         them
+  obs/                   SLO burn-rate detection, incidents, the alert plane
+                         and the fleet roll-up
+  scenario/              the WAN scenario engine: planets, stake weights,
+                         membership schedules (joins, departures)
+  swarm/                 thousands of virtual nodes on one host: the timer
+                         wheel's driver, the registry pager, the router
+  baselines/             the gossip and gossipsub comparison protocols
+  scripts/               the labs, the smokes (CI's gates on the CPU), the
+                         verify launch's stage profile (verify_profile.py)
+                         over the reference's candidate batch
+                         (launch_problem.py), capture and eddsa_compare
   utils/torchenv.py      device choice: `cuda` by default, `cpu` on request
                          (the sim's processes: $HANDEL_TORCH_DEVICE)
   utils/breaker.py       the circuit breaker of the service's device lanes
   utils/opcount.py       kernel-launching ops per verify launch (and RLC
                          launch) and per combine, on the CPU
 
-Entry points run on `cuda` unless the caller passes `device="cpu"`.
+Entry points run on `cuda` unless the caller passes `device="cpu"`. The
+names below are the reference's package surface; importing them pulls in
+no torch.
 """
+
+__version__ = "0.1.0"
+
+from handel_tpu_torch.core.bitset import BitSet
+from handel_tpu_torch.core.config import Config, default_config
+from handel_tpu_torch.core.crypto import (
+    Constructor,
+    MultiSignature,
+    PublicKey,
+    SecretKey,
+    Signature,
+    verify_multisignature,
+)
+from handel_tpu_torch.core.handel import Handel
+from handel_tpu_torch.core.identity import ArrayRegistry, Identity, Registry
+
+__all__ = [
+    "BitSet",
+    "Constructor",
+    "MultiSignature",
+    "PublicKey",
+    "SecretKey",
+    "Signature",
+    "verify_multisignature",
+    "Identity",
+    "Registry",
+    "ArrayRegistry",
+    "Config",
+    "default_config",
+    "Handel",
+]

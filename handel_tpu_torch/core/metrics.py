@@ -352,11 +352,11 @@ class MetricsRegistry:
         #: rows folded into `_overflow` across all capped collectors,
         #: exported as handel_metrics_rollup_dropped_series_ct
         self.dropped_series = 0
-        #: `GET /alerts` JSON payload source (the JAX package's obs/ alert
-        #: plane, not ported yet); None -> the endpoint answers 501
+        #: `GET /alerts` JSON payload source (obs/ alert plane); None ->
+        #: the endpoint answers 501
         self.alerts_source: Callable[[], dict] | None = None
-        #: `GET /fleet` JSON payload source (the JAX package's obs/ fleet
-        #: roll-up, not ported yet); None -> the endpoint answers 501
+        #: `GET /fleet` JSON payload source (obs/ fleet roll-up); None ->
+        #: the endpoint answers 501
         self.fleet_source: Callable[[], dict] | None = None
 
     def set_alerts_source(self, fn: Callable[[], dict] | None) -> None:

@@ -19,8 +19,8 @@ the service "serves heavy traffic and never restarts":
 - `LifecycleController` (controller.py) — the periodic control loop tying
   the three together, with one merged telemetry surface.
 
-The reference soak-tests the whole plane (its sim/soak.py); the port's
-soak harness is not ported yet (ROADMAP).
+The soak harness (sim/soak.py, `sim soak`) tests the whole plane, as the
+reference's does.
 """
 
 from handel_tpu_torch.lifecycle.autoscaler import LaneAutoscaler

@@ -101,10 +101,12 @@ Not ported (ROADMAP §C, deviation 1): the host failover breaker.
 
 from __future__ import annotations
 
+import asyncio
 import random
 import threading
 import time
 from collections import namedtuple
+from functools import partial
 from typing import Sequence
 
 import numpy as np
@@ -479,6 +481,15 @@ class BN254Device:
     def _pairing_tail(self, agg, sig_x, sig_y, h_x, h_y, valid):
         """Affine-convert the aggregates and run the batched
         product-of-pairings check e(H, X_j) * e(-S_j, B2) == 1."""
+        p, q, lane_mask, ok_lane = self._pairing_lanes(agg, sig_x, sig_y, h_x, h_y, valid)
+        checks = self.pairing.pairing_check(p, q, lane_mask, self.batch_size)
+        return checks & ok_lane
+
+    def _pairing_lanes(self, agg, sig_x, sig_y, h_x, h_y, valid):
+        """The pairing tail's affine step: the aggregates to affine and the
+        2C pair lanes (H beside each aggregate, -S_j beside B2). Returns
+        (p, q, lane_mask, ok_lane): the Miller loop's points and mask, and
+        the (C,) lanes that may pass."""
         g2, F = self.curves.g2, self.curves.F
         agg_inf = g2.is_infinity(agg)
         qx, qy, _ = g2.to_affine(agg)
@@ -489,11 +500,7 @@ class BN254Device:
         py = cat(h_y.expand_as(sig_y), F.neg(sig_y))
         qx2 = (cat(qx[0], bx0.expand_as(qx[0])), cat(qx[1], bx1.expand_as(qx[1])))
         qy2 = (cat(qy[0], by0.expand_as(qy[0])), cat(qy[1], by1.expand_as(qy[1])))
-        lane_mask = torch.cat([ok_lane, ok_lane])
-        checks = self.pairing.pairing_check(
-            (px, py), (qx2, qy2), lane_mask, self.batch_size
-        )
-        return checks & ok_lane
+        return (px, py), (qx2, qy2), torch.cat([ok_lane, ok_lane]), ok_lane
 
     def _unpack_words(self, words32, valid):
         """(C, 2W) int32 bitset words -> (n*C,) block-major candidate mask,
@@ -1360,3 +1367,13 @@ class BN254TorchScheme(BN254Scheme):
             mesh_devices=mesh_devices,
         )
 
+
+def make_async_verifier(device: BN254Device):
+    """Adapt a BN254Device into the processing pipeline's AsyncVerifier,
+    running its launches in a worker thread so the event loop stays live."""
+
+    async def verify(msg, pubkeys, requests):
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, partial(device.batch_verify, msg, requests))
+
+    return verify

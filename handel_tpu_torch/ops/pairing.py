@@ -279,7 +279,13 @@ class BN254Pairing:
         exponentiation; returns (groups,) bools. Masked lanes contribute 1.
         A resident run keeps residues through the per-candidate product and
         the final exponentiation; the verdict is its one conversion out."""
-        f = self._miller_loop_res(p, q, mask)
+        return self.check_product(self._miller_loop_res(p, q, mask), groups)
+
+    def check_product(self, f, groups: int):
+        """`pairing_check` after its Miller loop: `f` in the working
+        representation (as `_miller_loop_res` returns it), each candidate's
+        pair lanes multiplied, one shared final exponentiation, the
+        comparison with 1. Returns (groups,) bools."""
         per = f[0][0][0].shape[1] // groups
 
         def chunk(i):

@@ -11,5 +11,17 @@ state for the metrics plane.
 
 from handel_tpu_torch.parallel.batch_verifier import BatchVerifierService
 from handel_tpu_torch.parallel.plane import DeviceLane, DevicePlane
+from handel_tpu_torch.parallel.sharding import (
+    make_mesh,
+    sharded_masked_sum_g2,
+    sharded_pairing_check,
+)
 
-__all__ = ["BatchVerifierService", "DeviceLane", "DevicePlane"]
+__all__ = [
+    "make_mesh",
+    "sharded_pairing_check",
+    "sharded_masked_sum_g2",
+    "BatchVerifierService",
+    "DeviceLane",
+    "DevicePlane",
+]

@@ -22,18 +22,31 @@ tensor-core path takes; the row-major figure is printed beside it.
 Everything here is what the reference leaves to XLA, so it is plain
 PyTorch; the reference's `lax.scan`s are Python loops. Rates come from
 `chained_marginal` (ops/fp.py), the same method as the kernel lab's. The
-result is printed as one JSON line last and returned; nothing is written to
-disk. Agreement gates run first: outer8 against Field.mul, rns against the
-bigint oracle; a failed gate exits non-zero.
+result is printed as one JSON line last and returned. Agreement gates run
+first: outer8 against Field.mul, rns against the bigint oracle; a failed
+gate exits non-zero.
+
+`--persist` writes the result, with the card's name and power limit from
+nvidia-smi, as the "mxu_lab" entry of results/torch/fp_microbench.json
+(the port's own file; the JAX package's results/fp_microbench.json holds a
+TPU's figures), keeping the file's other entries. The reference's rules
+hold: a run on the CPU and a batch under 32,768 are refused the default
+file (FP_ARTIFACT_ENV names another file, which takes any run), the write
+is atomic, a file cut short by a killed writer is replaced rather than
+read, and a slope lost to noise keeps the prior entry's figure with a
+note.
 
     python -m handel_tpu_torch.scripts.mxu_limb_lab [batch] [--device cpu] [--int8-n N]
+        [--persist]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -41,10 +54,20 @@ import torch.nn.functional as tnf
 
 from handel_tpu_torch.ops import bn254_ref as bn
 from handel_tpu_torch.ops.fp import LIMB_BITS, Field, chained_marginal, device_name
+from handel_tpu_torch.scripts.artifacts import card_line, write_json_atomic
 from handel_tpu_torch.utils.torchenv import resolve_device
 
 N8 = 32  # 8-bit limbs for 256 bits
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8
+# --persist's file, and the variable that names another one
+FP_ARTIFACT = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "results", "torch",
+    "fp_microbench.json"))
+FP_ARTIFACT_ENV = "HANDEL_TORCH_BENCH_FP_ARTIFACT"
+# the smallest batch whose figures may go to the default file
+PERSIST_MIN_BATCH = 1 << 15
+# the rates a lost slope may carry over from the prior entry
+RATE_KEYS = ("prod_muls_per_s", "outer8_muls_per_s", "rns_muls_per_s")
 
 
 def split8(a16):
@@ -166,12 +189,54 @@ def int8_ceiling(device: torch.device, n: int, rng: np.random.Generator) -> dict
     return out
 
 
+def persist(out: dict, device: torch.device) -> str | None:
+    """Writes `out` as the "mxu_lab" entry of the fp microbench file (module
+    docstring). Returns the path written, or None when the run is refused
+    the default file (the reason printed)."""
+    override = os.environ.get(FP_ARTIFACT_ENV)
+    path = override or FP_ARTIFACT
+    if not override and device.type != "cuda":
+        print(f"refusing --persist on {device.type}: {path} keeps the card's figures "
+              f"(set {FP_ARTIFACT_ENV} to write another file)")
+        return None
+    if not override and out["batch"] < PERSIST_MIN_BATCH:
+        print(f"refusing --persist at batch {out['batch']} < {PERSIST_MIN_BATCH} to {path} "
+              f"(set {FP_ARTIFACT_ENV} to write a small run elsewhere)")
+        return None
+    art = {}
+    if os.path.exists(path):
+        try:  # a file cut short by a killed writer holds nothing to keep
+            with open(path) as f:
+                art = json.load(f)
+        except (OSError, ValueError):
+            art = {}
+        if not isinstance(art, dict):
+            art = {}
+    entry = {**out, "nvidia_smi": card_line(device),
+             "captured_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())}
+    prev = art.get("mxu_lab")
+    if isinstance(prev, dict):
+        # a slope lost to noise keeps the prior figure, marked as such
+        for k in RATE_KEYS:
+            if entry.get(k) is None and prev.get(k) is not None:
+                entry[k] = prev[k]
+                entry[k.split("_")[0] + "_note"] = (
+                    f"carried from the prior capture (batch {prev.get('batch')}, "
+                    f"{prev.get('captured_at')}); this run's slope was lost to timing noise")
+    art["mxu_lab"] = entry
+    write_json_atomic(path, art)
+    print(f"persisted mxu_lab -> {path}")
+    return path
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m handel_tpu_torch.scripts.mxu_limb_lab")
     ap.add_argument("batch", nargs="?", type=int, default=1 << 15)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--int8-n", type=int, default=4096,
                     help="side of the int8 ceiling's square products")
+    ap.add_argument("--persist", action="store_true",
+                    help=f"write the result into {os.path.relpath(FP_ARTIFACT)}")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     batch = args.batch
@@ -239,6 +304,8 @@ def main(argv=None) -> dict:
     out["ceiling_muls_per_s"] = ops / 4096
     print(f"  => a perfectly matrix-shaped product: ~{ops/4096/1e9:.2f}B muls/s; an "
           f"outer product contracts over K = 1")
+    if args.persist:
+        persist(out, dev)
     print(json.dumps(out))
     return out
 

@@ -9,12 +9,20 @@ state — dedup verdicts, peer penalties, queue bounds — is keyed by session
 id, so evicting a tenant drops its footprint wholesale. driver.py runs the
 sessions in one process (`MultiSessionCluster`) or over worker processes
 (`run_service`, worker.py), and adapts host schemes to the device contract
-(`HostDevice`).
-
-The reference's geo federation (federation.py) is not ported yet (ROADMAP).
+(`HostDevice`). federation.py fronts several regions' planes with one
+`FrontDoor` (`Federation`, `RegionPlane`): health, spill-over and region
+loss. `SloTier` (fairness.py) is the port's own export: the reference
+keeps it unexported.
 """
 
 from handel_tpu_torch.service.fairness import SloTier, TenantQueue
+from handel_tpu_torch.service.federation import (
+    Federation,
+    FrontDoor,
+    RegionDead,
+    RegionPlane,
+    RegionShedding,
+)
 from handel_tpu_torch.service.session import (
     STATE_DONE,
     STATE_EVICTED,
@@ -28,6 +36,11 @@ from handel_tpu_torch.service.session import (
 
 __all__ = [
     "AdmissionRefused",
+    "Federation",
+    "FrontDoor",
+    "RegionDead",
+    "RegionPlane",
+    "RegionShedding",
     "Session",
     "SessionManager",
     "SloTier",

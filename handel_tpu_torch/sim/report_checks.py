@@ -1,7 +1,7 @@
 """One source of truth for report acceptance checks — a copy of
 handel_tpu/sim/report_checks.py.
 
-The soak and federation harnesses (not ported yet: ROADMAP) both emit
+The soak and federation harnesses (sim/soak.py, sim/load.py) both emit
 bench-record-shaped reports
 carrying a `checks` block, and their CI smokes re-assert the same
 invariants with human-readable failure detail. Before this module the

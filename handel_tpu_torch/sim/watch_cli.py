@@ -22,10 +22,10 @@ endpoint to a file — the captured evidence form (results/README.md).
 Everything here is stdlib: urllib scrapes, ANSI escape rendering (no
 curses dependency — a dumb pipe gets plain refreshing blocks instead).
 
-The dashboard model and its rows are the JAX package's whole, the rows of
-planes the port has not ported yet (sessions, fleets, federation, alerts)
-included: they render from whatever families an endpoint serves, so the
-same exposition text gives the same strings. The launched run goes
+The dashboard model and its rows are the JAX package's whole (sessions,
+fleets, federation and alerts among them): they render from whatever
+families an endpoint serves, so the same exposition text gives the same
+strings. The launched run goes
 through the port's localhost platform on a thread of this process; the
 node processes it spawns hold the card, and this process keeps none (the
 platform's keygen scheme is on the host).
@@ -134,7 +134,7 @@ def aggregate(scrapes: list[dict]) -> dict:
         v for _, v in _samples(fams, "handel_device_breaker_state")
     ]
 
-    # multi-tenant service plane (service/, not ported yet): per-session rows
+    # multi-tenant service plane (service/): per-session rows
     # keyed by the `session` label dimension, plus the manager aggregates
     sessions: dict[str, dict] = {}
     for field, name in (
@@ -209,8 +209,7 @@ def aggregate(scrapes: list[dict]) -> dict:
             if hid is not None:
                 fleet_hosts.setdefault(hid, {})[field] = v
 
-    # alert/incident plane (obs/, not ported yet, via AlertPlane
-    # .register_metrics): one row per burn rule from the `rule` label
+    # alert/incident plane (obs/, via AlertPlane.register_metrics): one row per burn rule from the `rule` label
     # dimension, beside the detector-bank and incident-log aggregates
     alert_rules: dict[str, dict] = {}
     for field, name in (
@@ -268,7 +267,7 @@ def aggregate(scrapes: list[dict]) -> dict:
         "net_dropped": total("handel_net_dropped_packets"),
         "verifier_launches": total("handel_device_verifier_verifier_launches"),
         "occupancy": mean("handel_device_verifier_verifier_occupancy"),
-        # lifecycle plane (lifecycle/, not ported yet, via the verifier values()):
+        # lifecycle plane (lifecycle/, via the verifier values()):
         # registry epoch, plane-quiesce count + last gate-closed stall, SLO
         # admission shedding, and autoscaler lane churn
         "epoch": first("handel_device_verifier_epoch"),
@@ -322,7 +321,7 @@ def aggregate(scrapes: list[dict]) -> dict:
         "fleet_ingests": total("handel_fleet_ingests_ct"),
         "fleet_ingest_bytes": total("handel_fleet_ingest_bytes_ct"),
         "fleet_merge_ms": first("handel_fleet_last_merge_ms"),
-        # alert/incident plane (obs/, not ported yet): burn-rule rows plus the
+        # alert/incident plane (obs/): burn-rule rows plus the
         # incident-lifecycle counters — the `sim watch` alerting surface
         "alert_rules": alert_rules,
         "alerts_warn": total("handel_alerts_rules_warn"),
@@ -539,7 +538,7 @@ _ALERT_STATE_NAMES = {0.0: "ok", 1.0: "WARN", 2.0: "PAGE"}
 
 
 def render_alerts(model: dict) -> list[str]:
-    """Alerts/incidents row block (obs/, not ported yet): rule states with
+    """Alerts/incidents row block (obs/): rule states with
     their fast/slow burn multiples, anomalous detector series, and the
     incident-lifecycle counters — non-ok rules render first."""
     rules = model.get("alert_rules") or {}

@@ -295,3 +295,45 @@ def test_verdicts_match_jax_scheme_on_forged_batch(registry):
     ours = BN254TorchScheme(batch_size=C, device="cpu", warmup=False).constructor
     want = jax_cons.batch_verify(MSG, pks, reqs)
     assert ours.batch_verify(MSG, pks, reqs) == want == [True, False, False, True]
+
+
+def test_launch_smoke_on_the_cpu(capsys):
+    """The port's counterpart of scripts/launch_smoke.py on the CPU, cut from
+    8 launches to 1 (a whole 4-lane launch takes about 10 s on one CPU core): the
+    aggregates against the host oracle, the verdicts as built, and the
+    batched combine against host folds."""
+    from handel_tpu_torch.scripts import launch_smoke
+
+    assert launch_smoke.main(["--device", "cpu", "--launches", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "1 launches on cpu, 4 aggregates and verdicts checked" in out
+    assert "combine_batch verified on 8 groups" in out
+
+
+def test_make_async_verifier_runs_the_engine_off_the_event_loop():
+    """make_async_verifier (the reference's bn254_jax.py:1641) awaits the
+    engine's batch_verify on an executor thread, as the reference's does,
+    and hands back its verdicts."""
+    import threading
+
+    from handel_tpu.models.bn254_jax import make_async_verifier as jmake
+    from handel_tpu_torch.models.bn254_torch import make_async_verifier
+
+    class Engine:
+        def __init__(self):
+            self.calls = []
+
+        def batch_verify(self, msg, requests):
+            self.calls.append((msg, requests, threading.current_thread()))
+            return [r % 2 == 0 for r in requests]
+
+    async def run(make):
+        engine = Engine()
+        got = await make(engine)(MSG, ["pks"], [0, 1, 2])
+        return got, engine.calls, threading.current_thread()
+
+    for make in (make_async_verifier, jmake):
+        got, calls, loop_thread = asyncio.run(run(make))
+        assert got == [True, False, True]
+        assert [(m, r) for m, r, _ in calls] == [(MSG, [0, 1, 2])]
+        assert calls[0][2] is not loop_thread

@@ -229,3 +229,21 @@ def test_protocol_round_over_eddsa():
     """The reference's slow-tier round: 8 nodes over Ed25519."""
     _, finals = eddsa_round(8)
     assert next(iter(finals.values())).bitset.cardinality() == 8
+
+
+def test_eddsa_compare(tmp_path):
+    """The port's counterpart of scripts/eddsa_compare.py at 16 nodes (its
+    default is 64): both schemes' pipelines pass their verify and forgery
+    checks, and the record's wire sizes are the reference schemes'."""
+    import json
+
+    from handel_tpu_torch.scripts import eddsa_compare
+
+    out = tmp_path / "e.json"
+    assert eddsa_compare.main(["16", "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert rec["nodes"] == 16 and rec["clock"] == "host"
+    for name in ("eddsa", "bn254"):
+        got = rec["schemes"][name]
+        assert got["agg_sig_bytes"] == jnew_scheme(name).constructor.signature_size()
+        assert all(got[k] >= 0 for k in ("keygen_ms", "sign_ms", "aggregate_ms", "verify_ms"))

@@ -237,3 +237,14 @@ def test_load_subcommand_runs_beside_geo_weighted(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 2 and "rate_sps must be > 0" in out.stderr
+
+
+def test_load_smoke(tmp_path, capsys):
+    """The port's counterpart of scripts/load_smoke.py, its load window cut
+    from 45 s to 12 s: the region kill, spill-over and recovery pass every
+    FEDERATION_CHECKS predicate."""
+    from handel_tpu_torch.scripts import load_smoke
+
+    assert load_smoke.main(["--duration", "12", "--artifact-dir", str(tmp_path)]) == 0
+    assert "load smoke: all federation invariants held" in capsys.readouterr().out
+    assert json.loads((tmp_path / "federation_report.json").read_text())["ok"]

@@ -11,6 +11,7 @@ the CPU, and the contract of `chained_marginal` on CPU tensors.
 
 import functools
 import importlib.util
+import json
 import random
 import sys
 from pathlib import Path
@@ -244,3 +245,47 @@ def test_chained_marginal_slope(monkeypatch, times, want_rate):
     else:
         assert rate == pytest.approx(want_rate) and calls == [2, 10]
         assert floor == pytest.approx(0.5 - 2 * 64 / want_rate)
+
+
+def _lab_out(batch, rate=1.5e6):
+    return {"lab": "mxu_limb_lab", "device": "cpu", "batch": batch,
+            "prod_muls_per_s": rate, "outer8_muls_per_s": 2.0e5, "rns_muls_per_s": 3.0e5}
+
+
+def test_mxu_persist_refuses_the_default_file_off_the_card_and_for_small_batches(
+        tmp_path, monkeypatch, capsys):
+    """--persist's refusals, as the reference's: no CPU run and no batch
+    under 32,768 writes the default file (pointed here at tmp_path)."""
+    default = tmp_path / "fp_microbench.json"
+    monkeypatch.setattr(mxu_limb_lab, "FP_ARTIFACT", str(default))
+    monkeypatch.delenv(mxu_limb_lab.FP_ARTIFACT_ENV, raising=False)
+    assert mxu_limb_lab.persist(_lab_out(1 << 16), torch.device("cpu")) is None
+    assert "refusing --persist on cpu" in capsys.readouterr().out
+    # a card's run of a small batch (refused before nvidia-smi is asked)
+    assert mxu_limb_lab.persist(_lab_out(256), torch.device("cuda")) is None
+    assert "refusing --persist at batch 256" in capsys.readouterr().out
+    assert not default.exists()
+
+
+def test_mxu_persist_writes_through_the_override(tmp_path, monkeypatch, capsys):
+    """The override variable takes any run: the "mxu_lab" entry is written
+    atomically beside the file's other entries, a corrupt file is
+    replaced, and a lost slope keeps the prior figure with a note."""
+    path = tmp_path / "fp.json"
+    monkeypatch.setenv(mxu_limb_lab.FP_ARTIFACT_ENV, str(path))
+    path.write_text('{"mxu_lab": {"batch": 1')  # cut short by a killed writer
+    assert mxu_limb_lab.persist(_lab_out(256), torch.device("cpu")) == str(path)
+    art = json.loads(path.read_text())
+    assert art["mxu_lab"]["prod_muls_per_s"] == 1.5e6 and art["mxu_lab"]["nvidia_smi"] is None
+    art["other"] = {"kept": True}
+    path.write_text(json.dumps(art))
+    mxu_limb_lab.persist(_lab_out(512, rate=None), torch.device("cpu"))
+    art = json.loads(path.read_text())
+    assert art["other"] == {"kept": True}
+    assert art["mxu_lab"]["batch"] == 512 and art["mxu_lab"]["prod_muls_per_s"] == 1.5e6
+    assert "carried from the prior capture (batch 256" in art["mxu_lab"]["prod_note"]
+    assert not [p for p in tmp_path.iterdir() if p.name.startswith(".tmp_")]
+    # the flag reaches it from main
+    out = mxu_limb_lab.main(["256", "--device", "cpu", "--int8-n", "64", "--persist"])
+    assert json.loads(path.read_text())["mxu_lab"]["batch"] == out["batch"] == 256
+    assert f"persisted mxu_lab -> {path}" in capsys.readouterr().out

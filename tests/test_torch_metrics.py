@@ -328,3 +328,16 @@ def test_profile_endpoint_captures_on_the_cpu(tmp_path):
     assert os.path.isfile(os.path.join(out, "trace.json"))
     assert isinstance(json.load(open(os.path.join(out, "kernels.json"))), dict)
     assert tel.values()["profileCaptures"] == 1.0
+
+
+def test_metrics_smoke(capsys):
+    """The port's counterpart of scripts/metrics_smoke.py at its default
+    size: a node process's endpoint and an in-process cluster's both carry
+    20 families or more and every plane."""
+    from handel_tpu_torch.scripts import metrics_smoke
+
+    assert metrics_smoke.main([]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith("metrics smoke OK")
+    fams = json.loads(out[-2])
+    assert fams["node_process_families"] >= 20 and fams["in_process_families"] >= 20

@@ -453,3 +453,15 @@ def nudge(pkg):
 def test_autoscaler_incident_nudge_as_the_reference():
     before, nudges, repair_first, _ = both(nudge)
     assert before == 0.0 and nudges == 1 and repair_first
+
+
+def test_alert_smoke(tmp_path, capsys):
+    """The port's counterpart of scripts/alert_smoke.py, each run's load
+    window cut from 30 s to 10 s: exactly one incident in the drill, named
+    for the killed region and closed, and none in the clean control."""
+    from handel_tpu_torch.scripts import alert_smoke
+
+    assert alert_smoke.main(["--duration", "10", "--artifact-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "alert smoke: exactly-one-incident drill + clean control held" in out
+    assert (tmp_path / "incident_report.json").exists()

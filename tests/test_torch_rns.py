@@ -214,3 +214,15 @@ def test_cpu_tensors_launch_no_kernel(fields):
     F.mul(a, a)
     F.from_resident(F.mul_resident(F.to_resident(a), F.to_resident(a)))
     assert (mont_mul.launches, rns_mul_resident.launches) == before
+
+
+def test_rns_smoke_on_the_cpu(capsys):
+    """The port's counterpart of scripts/rns_smoke.py with --full, on the
+    CPU: checks 1, 2, 3, 5 and 6, and the resident pairing against the
+    oracle."""
+    from handel_tpu_torch.scripts import rns_smoke
+
+    assert rns_smoke.main(["--device", "cpu", "--full"]) == 0
+    out = capsys.readouterr().out
+    assert "rns_smoke[full]: resident pairing_check accepts valid / rejects forged" in out
+    assert out.strip().splitlines()[-1] == "rns_smoke: OK"

@@ -363,3 +363,14 @@ def test_rollup_config_as_the_reference(tmp_path):
     _, loaded, errors = both(rollup_config, tmp_path)
     assert loaded["series_cap"] == 512 and loaded["rollup_stale_s"] == 2.5
     assert len(errors) == 4
+
+
+def test_rollup_smoke(tmp_path, capsys):
+    """The port's counterpart of scripts/rollup_smoke.py at its default size
+    (512 identities, 2 processes): bounded series and the host-loss drill."""
+    from handel_tpu_torch.scripts import rollup_smoke
+
+    assert rollup_smoke.main(["--artifact-dir", str(tmp_path)]) == 0
+    assert "rollup smoke OK" in capsys.readouterr().out
+    record = json.loads((tmp_path / "rollup_report.json").read_text())
+    assert 0 < record["fleet_series_count"] <= 512

@@ -128,3 +128,13 @@ def test_unreachable_weighted_threshold_is_refused_before_any_node(tmp_path):
         errs.append(str(e.value))
     assert errs[0] == errs[1]
     assert not (tmp_path / "scenario_report.json").exists()
+
+
+def test_scenario_smoke(tmp_path, capsys):
+    """The port's counterpart of scripts/scenario_smoke.py at its default
+    size (32 nodes, 3 regions, churn and a join)."""
+    from handel_tpu_torch.scripts import scenario_smoke
+
+    assert scenario_smoke.main(["--artifact-dir", str(tmp_path)]) == 0
+    assert "scenario smoke: all WAN scenario invariants held" in capsys.readouterr().out
+    assert json.loads((tmp_path / "scenario_report.json").read_text())["ok"]

@@ -967,3 +967,18 @@ def test_bn254_plane_needs_its_cards():
         pytest.skip("a card is visible: the refusal needs more lanes than cards")
     with pytest.raises(ValueError, match="only 0 visible"):
         bn254_plane([], 1)
+
+
+def test_service_smoke(capsys):
+    """The port's counterpart of scripts/service_smoke.py at its default
+    size: 8 sessions coalesce above a lone session's fill, and the
+    2-process serve fleet completes."""
+    import json
+
+    from handel_tpu_torch.scripts import service_smoke
+
+    assert service_smoke.main([]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith("service smoke OK")
+    got = json.loads(out[-2])
+    assert got["multi_fill"] > got["baseline_fill"] and got["fleet_completed"] == 4

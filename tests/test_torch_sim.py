@@ -924,3 +924,33 @@ def test_node_verifies_through_a_verifier_server(tmp_path):
     assert all(b"node process finished OK" in out for out, _ in outs)
     assert served["rpcServedRequests"] > 0 and served["rpcServeErrors"] == 0
     assert svc["verifierLaunches"] >= 1 and svc["failoverBatches"] == 0
+
+
+def test_capture_merges_every_run_like_the_reference(tmp_path):
+    """The port's counterpart of scripts/capture.py runs a fake-scheme TOML's
+    two [[runs]] and merges their rows into one CSV, byte for byte as the
+    reference's merge_csvs merges the same per-run files."""
+    import importlib.util
+
+    from handel_tpu_torch.scripts import capture
+
+    cfg = pconfig.SimConfig(
+        network="udp", scheme="fake", max_timeout_s=30.0,
+        runs=[pconfig.RunConfig(nodes=8, threshold=8, processes=1),
+              pconfig.RunConfig(nodes=6, threshold=5, processes=2)],
+    )
+    toml = tmp_path / "c.toml"
+    toml.write_text(pconfig.dump_config(cfg))
+    out = tmp_path / "out.csv"
+    assert capture.main([str(out), str(toml)]) == 0
+    with open(out, newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [(r["nodes"], r["threshold"]) for r in rows] == [("8", "8"), ("6", "5")]
+    parts = sorted(glob.glob(str(tmp_path / ".work" / "results_*.csv")))
+    assert len(parts) == 2
+    spec = importlib.util.spec_from_file_location("ref_capture", ROOT / "scripts" / "capture.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    ours, theirs = tmp_path / "ours.csv", tmp_path / "theirs.csv"
+    assert capture.merge_csvs(parts, str(ours)) == ref.merge_csvs(parts, str(theirs)) == 2
+    assert ours.read_bytes() == theirs.read_bytes()

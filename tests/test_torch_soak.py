@@ -127,3 +127,14 @@ def soak_pairs(seconds: float, workdir: Path) -> None:
 
 if __name__ == "__main__":
     soak_pairs(float(sys.argv[1]), Path(sys.argv[2]))
+
+
+def test_soak_smoke(tmp_path, capsys):
+    """The port's counterpart of scripts/soak_smoke.py, its load window cut
+    from 90 s to 8 s: every SOAK_CHECKS predicate holds and the report is
+    written."""
+    from handel_tpu_torch.scripts import soak_smoke
+
+    assert soak_smoke.main(["--duration", "8", "--artifact-dir", str(tmp_path)]) == 0
+    assert "soak smoke: all lifecycle invariants held" in capsys.readouterr().out
+    assert json.loads((tmp_path / "soak_report.json").read_text())["ok"]

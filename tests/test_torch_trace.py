@@ -219,3 +219,14 @@ def test_untraced_service_and_lane_hold_no_recorder():
 def test_untraced_cluster_records_nothing():
     cluster = LocalCluster(4)
     assert all(h.rec is None and h.proc.rec is None for h in cluster.handels.values())
+
+
+def test_trace_smoke(tmp_path, capsys):
+    """The port's counterpart of scripts/trace_smoke.py at its default size
+    (16 nodes): every check passes and the report is written."""
+    from handel_tpu_torch.scripts import trace_smoke
+
+    assert trace_smoke.main(["--artifact-dir", str(tmp_path)]) == 0
+    assert "trace smoke OK" in capsys.readouterr().out
+    report = json.loads((tmp_path / "trace_report.json").read_text())
+    assert report["backend"] == "trace" and report["critical_path_coverage"] >= 0.90
