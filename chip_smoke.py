@@ -36,11 +36,16 @@ Phases, one line each, any failure exits non-zero with no result line:
               x y M^-1 mod p through the resident conversions on a prefix;
               the device time of each tile width
      lab_kernel  kernels B3a and B3b, the kernel lab's two formulations of
-              B1's product (csrc/lab_mont.cu), each against its plain version
-              and against B1, exact equality, at 16 limbs (2^20 + 16 columns
-              with edge pairs, the lab's batch 2^18, an Fp12 multiply at 128
-              lanes) and 24 limbs (2^20 + 16); and against its plain version
-              on the lab's own race inputs, 2^18 columns of raw 16-bit digits
+              B1's product (csrc/lab_mont.cu), every instance (1, 2, 4 warps
+              a block) against its plain version and against B1, exact
+              equality, at 16 limbs (2^20 + 16 columns with edge pairs, the
+              lab's batch 2^18, an Fp12 multiply at 128 lanes) and 24 limbs
+              (2^20 + 16); and against its plain version on the lab's own
+              race inputs, 2^18 columns of raw 16-bit digits; the device
+              time of every instance at 2^20 + 16 and 2^18 columns; each
+              instance's SASS instructions per column (cuobjdump; a B3b
+              instance without IMMA, or either without IDP, fails), and
+              B3b's dynamic shared memory
               Every kernel figure of phase 3 is a device time per call: chains
               of calls captured in one CUDA graph and replayed, by
               chained_marginal's slope (handel_tpu_torch/ops/fp.py), each
@@ -943,15 +948,23 @@ def kernel_phase(F, widths: dict[str, int], rng, with_edges: bool) -> dict:
     return out
 
 
-def lab_kernel_phase(F, widths: dict[str, int], rng) -> dict:
-    """Kernels B3a and B3b against their plain bodies and against B1 on the
-    card at each width (canonical operands led by the edge pairs), and
-    against their plain bodies on the lab's own race inputs (2^18 columns of
-    raw 16-bit digits, values up to R - 1), exact; returns {kernel:
-    {width/nlimbs: figures}}. Raises on any difference."""
+def lab_kernel_phase(F, widths: dict[str, int], rng, timed=()) -> dict:
+    """Kernels B3a and B3b, every instance (warps per block), against their
+    plain bodies and against B1 on the card at each width (canonical
+    operands led by the edge pairs), and against their plain bodies on the
+    lab's own race inputs (2^18 columns of raw 16-bit digits, values up to
+    R - 1), exact. At each width the default instance's device time, eager
+    time and the plain body's; at the widths in `timed` every instance's
+    device time too (`ms_by_instance`). Returns {kernel: {width/nlimbs:
+    figures}}. Raises on any difference."""
     import torch
 
-    from handel_tpu_torch.kernels.lab_mont import lab_cios_fullwidth, lab_separated
+    from handel_tpu_torch.kernels.lab_mont import (
+        DEFAULT_WARPS,
+        WARPS,
+        lab_cios_fullwidth,
+        lab_separated,
+    )
     from handel_tpu_torch.scripts.fp_kernel_lab import LabField, raw_operands
 
     lab = LabField(F)
@@ -959,19 +972,26 @@ def lab_kernel_phase(F, widths: dict[str, int], rng) -> dict:
     forms = (("lab_cios_fullwidth", lab_cios_fullwidth, "cios_fullwidth"),
              ("lab_separated", lab_separated, "separated"))
     out = {"lab_cios_fullwidth": {}, "lab_separated": {}}
+
+    def launch(name, counter, fn, a, b):
+        before = counter.launches
+        got = fn(a, b)
+        if counter.launches != before + 1:
+            raise AssertionError(f"{name} on CUDA tensors did not launch its kernel")
+        return got
+
     # raw digits reach the code that drops what passes the top
     ra, rb = raw_operands(F, 1 << 18)
     for name, counter, form in forms:
-        before = counter.launches
-        got = lab.kernel(form)(ra, rb)
-        if counter.launches != before + 1:
-            raise AssertionError(f"{name} on CUDA tensors did not launch its kernel")
         want = lab.body(form)(ra, rb)
-        err = int((got.long() - want.long()).abs().max().item())
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} != plain on raw digits at n={F.nlimbs}: max err {err}")
+        for warps in WARPS:
+            got = launch(name, counter, lab.kernel(form, warps), ra, rb)
+            err = int((got.long() - want.long()).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} w{warps} != plain on raw digits at n={F.nlimbs}: max err {err}")
         out[name][f"raw_digits/{F.nlimbs}"] = fig = dict(
-            nlimbs=F.nlimbs, cols=ra.shape[1], max_abs_err=err)
+            nlimbs=F.nlimbs, cols=ra.shape[1], max_abs_err=err, instances=list(WARPS))
         line("lab_kernel", kernel=name, width="raw_digits", **fig)
     del ra, rb, got, want
     for label, cols in widths.items():
@@ -979,31 +999,67 @@ def lab_kernel_phase(F, widths: dict[str, int], rng) -> dict:
         a, b = a.to(dev), b.to(dev)
         b1 = F.mul(a, b)
         for name, counter, form in forms:
-            fn, body = lab.kernel(form), lab.body(form)
-            before = counter.launches
-            got = fn(a, b)
-            if counter.launches != before + 1:
-                raise AssertionError(f"{name} on CUDA tensors did not launch its kernel")
+            body = lab.body(form)
             want = body(a, b)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max().item())
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} != plain at n={F.nlimbs} width {label}: max err {err}")
-            if not torch.equal(got, b1):
-                raise AssertionError(f"{name} != B1 at n={F.nlimbs} width {label}")
+            for warps in WARPS:
+                got = launch(name, counter, lab.kernel(form, warps), a, b)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max().item())
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{name} w{warps} != plain at n={F.nlimbs} width {label}: max err {err}")
+                if not torch.equal(got, b1):
+                    raise AssertionError(f"{name} w{warps} != B1 at n={F.nlimbs} width {label}")
+            fn = lab.kernel(form)
             if label == next(iter(widths)):
                 replay_check(fn, a, b, counter)
             ms = graph_ms(fn, a, b)
+            by_instance = ({f"w{w}": (ms if w == DEFAULT_WARPS
+                                      else graph_ms(lab.kernel(form, w), a, b))
+                            for w in WARPS} if label in timed else None)
             eager_ms = cuda_ms(lambda: fn(a, b), 20)
             plain_ms = cuda_ms(lambda: body(a, b), 3)
             bound, bound_by = mont_mul_bound_ms(F.nlimbs, cols)
             out[name][f"{label}/{F.nlimbs}"] = fig = dict(
                 nlimbs=F.nlimbs, cols=cols, max_abs_err=err, matches_b1=True, ms=ms,
                 eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                instance=f"w{DEFAULT_WARPS}", ms_by_instance=by_instance,
             )
             line("lab_kernel", kernel=name, width=label, **fig)
-        del a, b, b1
+        del a, b, b1, got, want
         torch.cuda.empty_cache()
+    return out
+
+
+def sass_profile(lib) -> dict[str, dict[str, int]] | None:
+    """{kernel<template args>: {"instructions": n, "IMMA": n, "IDP": n}} in a
+    built library's SASS (cuobjdump -sass): every instruction but the NOPs
+    that pad the code, and the integer tensor-core (IMMA) and dot-product
+    (IDP, __dp4a) ones among them. In a kernel without loops, where a
+    thread owns one column, `instructions` is what one column issues: each
+    thread-instruction once, a warp-wide mma.sync once for each of its 32
+    columns' lanes. None when the toolkit has no cuobjdump."""
+    from pathlib import Path
+
+    from handel_tpu_torch.kernels.build import nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), {"instructions": 0, "IMMA": 0, "IDP": 0})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", ln)
+        if cur is None or not m or m.group(1) == "NOP":
+            continue
+        cur["instructions"] += 1
+        if m.group(1) in ("IMMA", "IDP"):
+            cur[m.group(1)] += 1
     return out
 
 
@@ -3595,11 +3651,27 @@ def first_process(worker_dir: str, workers: list) -> int:
     r65 = rns_kernel_phase(R65, {"random+edges": (1 << 20) + 16, **BLS_B2_WIDTHS}, rng)
     done("rns_kernel")
     b3 = lab_kernel_phase(
-        F16, {"random+edges": (1 << 20) + 16, "lab_batch": 1 << 18, "f12_mul": f12_width}, rng
+        F16, {"random+edges": (1 << 20) + 16, "lab_batch": 1 << 18, "f12_mul": f12_width}, rng,
+        timed=("random+edges", "lab_batch"),
     )
-    b3_24 = lab_kernel_phase(F24, {"random+edges": (1 << 20) + 16}, rng)
+    b3_24 = lab_kernel_phase(F24, {"random+edges": (1 << 20) + 16}, rng, timed=("random+edges",))
     for kname in b3:
         b3[kname].update(b3_24[kname])
+    # B3a and B3b as built: instructions per column, the tensor-core (IMMA)
+    # and dot-product (IDP) ones among them, and B3b's shared memory
+    lab_smem = ctypes.CDLL(str(build.library_path("lab_mont"))).handel_lab_smem_bytes
+    lab_sass = sass_profile(build.library_path("lab_mont"))
+    if lab_sass is None:
+        line("lab_kernel", sass="not read: the CUDA toolkit has no cuobjdump")
+    else:
+        for kname, prof in sorted(lab_sass.items()):
+            line("lab_kernel", sass=kname, per_column=prof)
+            if kname.startswith("lab_separated_kernel") and not prof["IMMA"]:
+                raise AssertionError(f"{kname}: no IMMA (int8 tensor-core) instruction")
+            if not prof["IDP"]:
+                raise AssertionError(f"{kname}: no IDP (dp4a) instruction")
+    line("lab_kernel", dynamic_smem={f"lab_separated_kernel<{n},{w}>": lab_smem(n, w)
+                                     for n in (16, 24) for w in (1, 2, 4)})
     done("lab_kernel")
 
     pairing_phase(dev, "cios", BN254Device)
@@ -3761,7 +3833,11 @@ def first_process(worker_dir: str, workers: list) -> int:
               on_stages=on_stages("rns")),
         *(entry(kname, "handel_tpu_torch/csrc/lab_mont.cu", "scripts/fp_kernel_lab.py:234",
                 lab["executed"][kname], list(b3[kname].values()), b3[kname]["random+edges/16"],
-                captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname])
+                captured_calls=lab["captured"][kname], replayed_calls=lab["replayed"][kname],
+                at_24_limbs={k: b3[kname]["random+edges/24"][k]
+                             for k in ("ms", "plain_ms", "bound_ms", "ms_by_instance")},
+                sass_per_column={k: v for k, v in (lab_sass or {}).items()
+                                 if k.startswith(f"{kname}_kernel")})
           for kname in ("lab_cios_fullwidth", "lab_separated")),
     ]}))
     line("phases", seconds=clock.seconds, second_process_seconds=joined["seconds"])

@@ -8,27 +8,81 @@ torch.cuda.current_stream() and raises if the launch was refused; its
 call records its launch into the graph and counts once there; replays of
 the graph do not count (ops/fp.py `ChainTally` counts those). The library
 is built and loaded at the first launch, never at import.
+
+B3b multiplies by its two constants, p' and p, on the tensor cores; their
+Toeplitz byte matrices, cut into the lanes' mma.sync A fragments, are the
+field's fragment table (`separated_fragments`, laid out as csrc/lab_mont.cuh
+`SepLayout` reads it). A LabField made on a card (scripts/fp_kernel_lab.py)
+holds the table there as `frags`, built before any call, so that no first
+call lands inside a graph capture.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-# the block sizes the kernels are instantiated for (the lab's tile race)
-THREADS = (64, 128, 256, 512)
-DEFAULT_THREADS = 256
+# warps per block the kernels are instantiated for (the lab's instance race;
+# a warp covers 32 columns)
+WARPS = (1, 2, 4)
+DEFAULT_WARPS = 1
 SUPPORTED_LIMBS = (16, 24)
+
+
+def tile_live(n: int, mt: int, ks: int) -> bool:
+    """Whether row tile mt, depth step ks of a constant product of n 16-bit
+    digits has a nonzero entry (lab_mont.cuh `sep_tile_live`)."""
+    k_hi = min(32 * ks + 31, 2 * n - 1)
+    return 32 * ks < 2 * n and 16 * mt + 15 >= 32 * ks and 16 * mt - k_hi < 2 * n
+
+
+def _const_bytes(limbs) -> list[int]:
+    return [(d >> s) & 0xFF for d in limbs for s in (0, 8)]
+
+
+def separated_fragments(n: int, p_limbs, pprime_limbs) -> np.ndarray:
+    """B3b's fragment table for a field of n 16-bit digits: for product 1
+    (tl p' mod R: 2n byte positions, 2n/16 row tiles) then product 2 (m p:
+    4n positions), every live (row tile mt, depth step ks) in order, 32
+    lanes of 4 int32 words; lane l (g = l // 4, t = l % 4) word r holds the
+    entries of row position 16 mt + 2 g + (r & 1) at depths
+    32 ks + 16 (r >> 1) + 4 t .. + 3 (one byte each, depth order), the entry
+    at (pos, k) being byte pos - k of the constant where 0 <= pos - k < 2n
+    and k < 2n, else 0."""
+    ks_n = (2 * n + 31) // 32
+    tiles = []
+    for consts, mts in ((pprime_limbs, 2 * n // 16), (p_limbs, 4 * n // 16)):
+        cb = _const_bytes(consts)
+        for mt in range(mts):
+            for ks in range(ks_n):
+                if not tile_live(n, mt, ks):
+                    continue
+                tile = np.zeros((32, 4), np.uint32)
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for r in range(4):
+                        pos = 16 * mt + 2 * g + (r & 1)
+                        k0 = 32 * ks + 16 * (r >> 1) + 4 * t
+                        word = 0
+                        for j in range(4):
+                            k = k0 + j
+                            if k < 2 * n and 0 <= pos - k < 2 * n:
+                                word |= cb[pos - k] << (8 * j)
+                        tile[lane, r] = word
+                tiles.append(tile)
+    return np.ascontiguousarray(np.concatenate(tiles).reshape(-1).view(np.int32))
 
 
 class LabMontKernel:
     """One lab formulation on (nlimbs, B) int32 digit tensors on the card.
 
-    `lab` is a LabField (scripts/fp_kernel_lab.py): it supplies nlimbs and
-    the constants p, p' and n0 as 16-bit digit lists. Operands must be CUDA
-    int32 tensors of shape (nlimbs, B) on one device, with unit column
-    stride (row slices of a wider array are fine), each digit < 2^16."""
+    `lab` is a LabField (scripts/fp_kernel_lab.py) on the operands' card:
+    it supplies nlimbs, p's 16-bit digits, n0 and (B3b) the fragment table
+    `frags`. Operands must be CUDA int32 tensors of shape (nlimbs, B) on one
+    device, with unit column stride (row slices of a wider array are fine),
+    each digit < 2^16."""
 
     def __init__(self, name: str, form: int):
         self.name = name
@@ -47,8 +101,8 @@ class LabMontKernel:
                 ctypes.c_void_p, ctypes.c_int64,  # b, ldb
                 ctypes.c_void_p, ctypes.c_int64,  # out, ldo
                 ctypes.c_int64, ctypes.c_int,  # cols, nlimbs16
-                ctypes.c_void_p, ctypes.c_void_p,  # p digits, p' digits
-                ctypes.c_uint32, ctypes.c_int,  # n0, threads
+                ctypes.c_void_p, ctypes.c_uint32,  # p digits, n0
+                ctypes.c_void_p, ctypes.c_int,  # fragment table, warps
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -70,12 +124,12 @@ class LabMontKernel:
             raise ValueError(f"{self.name}: {what} needs unit column stride")
 
     def __call__(self, lab, a: torch.Tensor, b: torch.Tensor,
-                 threads: int = DEFAULT_THREADS) -> torch.Tensor:
+                 warps: int = DEFAULT_WARPS) -> torch.Tensor:
         n = lab.n
         if n not in SUPPORTED_LIMBS:
             raise ValueError(f"{self.name}: no instance for {n} limbs; built for {SUPPORTED_LIMBS}")
-        if threads not in THREADS:
-            raise ValueError(f"{self.name}: threads={threads}, built for {THREADS}")
+        if warps not in WARPS:
+            raise ValueError(f"{self.name}: warps={warps}, built for {WARPS}")
         dev = a.device if isinstance(a, torch.Tensor) else None
         self._check("a", a, n, dev)
         self._check("b", b, n, dev)
@@ -83,13 +137,15 @@ class LabMontKernel:
             raise ValueError(
                 f"{self.name}: shapes differ {tuple(a.shape)} vs {tuple(b.shape)}"
             )
+        if lab.F.device != dev:
+            raise ValueError(f"{self.name}: field on {lab.F.device}, operands on {dev}")
         cols = a.shape[1]
         out = torch.empty((n, cols), dtype=torch.int32, device=dev)
         if cols == 0:
             return out
         fn = self._entry()
+        frags = lab.frags.data_ptr() if self.form == 1 else None
         p = (ctypes.c_uint32 * n)(*lab.p_limbs)
-        pprime = (ctypes.c_uint32 * n)(*lab.pprime_limbs)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             rc = fn(
@@ -97,7 +153,7 @@ class LabMontKernel:
                 a.data_ptr(), a.stride(0),
                 b.data_ptr(), b.stride(0),
                 out.data_ptr(), out.stride(0),
-                cols, n, p, pprime, lab.n0, threads, stream,
+                cols, n, p, lab.n0, frags, warps, stream,
             )
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError {rc}")

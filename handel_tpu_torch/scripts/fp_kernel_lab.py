@@ -12,10 +12,12 @@ the device's marginal rate per call, comparable across candidates.
                          Montgomery constant is M, not R.
   * `plain:<form>`       the two formulations below as plain PyTorch bodies
                          (the reference's `xla:` candidates).
-  * `cuda:<form>:b<t>`   the same formulations as hand-written Hopper
-                         kernels (B3a, B3b in csrc/lab_mont.cu) at thread
-                         blocks of t = 64, 128, 256, 512 (the reference's
-                         `pallas:<form>:t<tile>` race); card only.
+  * `cuda:<form>:w<w>`   the same formulations as hand-written Hopper
+                         kernels (B3a, B3b in csrc/lab_mont.cu) at blocks
+                         of w = 1, 2, 4 warps of 32 columns (the
+                         reference's `pallas:<form>:t<tile>` race); card
+                         only. B3b runs its two constant products on the
+                         int8 tensor cores.
 
 The formulations keep the reference's 16-bit digits in lazy 32-bit columns:
 
@@ -49,10 +51,12 @@ import torch
 import torch.nn.functional as tnf
 
 from handel_tpu_torch.kernels.lab_mont import (
-    DEFAULT_THREADS,
-    THREADS,
+    DEFAULT_WARPS,
+    SUPPORTED_LIMBS,
+    WARPS,
     lab_cios_fullwidth,
     lab_separated,
+    separated_fragments,
 )
 from handel_tpu_torch.ops import bn254_ref as bn
 from handel_tpu_torch.ops.fp import (
@@ -92,6 +96,12 @@ class LabField:
         self.pprime = (-pow(F.p, -1, R)) % R
         self.pprime_limbs = [int(v) for v in _int_to_limbs(self.pprime, self.n)]
         self.p_limbs = [int(v) for v in F.p_limbs_np]
+        # B3b's constants p' and p as its tensor-core fragments, on the card
+        self.frags = (
+            torch.from_numpy(separated_fragments(self.n, self.p_limbs, self.pprime_limbs))
+            .to(F.device)
+            if F.device.type == "cuda" and self.n in SUPPORTED_LIMBS else None
+        )
 
     def _cond_sub_p_rows(self, rows):
         """r - p if r >= p else r, for a list of n canonical 16-bit rows
@@ -216,17 +226,17 @@ class LabField:
 
     # -- the kernels ----------------------------------------------------------
 
-    def mul_cios_fullwidth(self, a, b, threads: int = DEFAULT_THREADS):
+    def mul_cios_fullwidth(self, a, b, warps: int = DEFAULT_WARPS):
         """B3a on CUDA tensors (or raise); the plain body on CPU tensors."""
         if a.is_cuda:
-            return lab_cios_fullwidth(self, a, b, threads)
+            return lab_cios_fullwidth(self, a, b, warps)
         self._cpu_operands(a, b)
         return self.cios_fullwidth_body(a, b)
 
-    def mul_separated(self, a, b, threads: int = DEFAULT_THREADS):
+    def mul_separated(self, a, b, warps: int = DEFAULT_WARPS):
         """B3b on CUDA tensors (or raise); the plain body on CPU tensors."""
         if a.is_cuda:
-            return lab_separated(self, a, b, threads)
+            return lab_separated(self, a, b, warps)
         self._cpu_operands(a, b)
         return self.separated_body(a, b)
 
@@ -239,11 +249,12 @@ class LabField:
         return {"cios_fullwidth": self.cios_fullwidth_body,
                 "separated": self.separated_body}[form]
 
-    def kernel(self, form: str, threads: int = DEFAULT_THREADS):
-        """The binary op that launches the named formulation's kernel."""
+    def kernel(self, form: str, warps: int = DEFAULT_WARPS):
+        """The binary op that launches the named formulation's kernel at
+        blocks of `warps` warps."""
         mul = {"cios_fullwidth": self.mul_cios_fullwidth,
                "separated": self.mul_separated}[form]
-        return functools.partial(mul, threads=threads)
+        return functools.partial(mul, warps=warps)
 
 
 def validate(F: Field, fn, bsz: int = 256, seed: int = 7) -> None:
@@ -284,8 +295,8 @@ def candidates(F: Field, lab: LabField, F_rns: Field):
     for form in FORMS:
         out.append((f"plain:{form}", lab.body(form), F))
         if F.device.type == "cuda":
-            for t in THREADS:
-                out.append((f"cuda:{form}:b{t}", lab.kernel(form, t), F))
+            for w in WARPS:
+                out.append((f"cuda:{form}:w{w}", lab.kernel(form, w), F))
     return out
 
 

@@ -10,6 +10,7 @@ This file imports nothing of the JAX package, so it also runs there.
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -342,34 +343,41 @@ LAB_FORMS = ("cios_fullwidth", "separated")
 
 @pytest.mark.parametrize("form", LAB_FORMS)
 @pytest.mark.parametrize("p", [bn.P, BLS12_381_P], ids=["bn254", "bls12_381"])
-@pytest.mark.parametrize("cols", [1, 31, 255, 257, 4099])
+@pytest.mark.parametrize("cols", [1, 7, 31, 33, 255, 257, 4099, (1 << 18) + 3])
 def test_lab_kernels_match_plain_and_b1_at_ragged_widths(card, p, cols, form):
+    """Every instance (warps per block) at widths ragged around a warp's 32
+    columns and a block's 64 to 256, exactly: against the plain body and B1
+    on canonical columns, the plain body on raw digits, and on row slices
+    of a wider operand."""
     from handel_tpu_torch.kernels import lab_mont
     from handel_tpu_torch.scripts.fp_kernel_lab import LabField
 
     F = Field(p, device=card)
     lab = LabField(F)
     counter = getattr(lab_mont, f"lab_{form}")
-    rng = random.Random(cols + len(form))
-    xs = [rng.randrange(p) for _ in range(cols)]
-    ys = [rng.randrange(p) for _ in range(cols)]
+    gen = np.random.default_rng(cols + len(form))
+    xs = [int.from_bytes(gen.bytes(48), "little") % p for _ in range(cols)]
+    ys = [int.from_bytes(gen.bytes(48), "little") % p for _ in range(cols)]
     a, b = F.pack(xs, mont=False), F.pack(ys, mont=False)
-    for threads in lab_mont.THREADS:
+    tgen = torch.Generator().manual_seed(cols)
+    ra = torch.randint(0, 1 << 16, (F.nlimbs, cols), generator=tgen, dtype=torch.int32).to(card)
+    rb = torch.randint(0, 1 << 16, (F.nlimbs, cols), generator=tgen, dtype=torch.int32).to(card)
+    wide = torch.cat([a, a], dim=1)
+    b1 = F.mul(a, b)  # kernel B1
+    for warps in lab_mont.WARPS:
         before = counter.launches
-        got = lab.kernel(form, threads)(a, b)
+        got = lab.kernel(form, warps)(a, b)
         assert counter.launches == before + 1
         assert torch.equal(got, lab.body(form)(a, b))
-        assert torch.equal(got, F.mul(a, b))  # kernel B1
+        assert torch.equal(got, b1)
+        # raw 16-bit digits: the plain body's bits
+        assert torch.equal(lab.kernel(form, warps)(ra, rb), lab.body(form)(ra, rb))
+        # row slices of a wider operand take the kernel's row stride
+        assert torch.equal(lab.kernel(form, warps)(wide[:, cols:], b), got)
     rinv = pow(F.mont_r, -1, p)
-    assert F.unpack(got, mont=False) == [x * y * rinv % p for x, y in zip(xs, ys)]
-    # raw 16-bit digits: the plain body's bits
-    gen = torch.Generator().manual_seed(cols)
-    ra = torch.randint(0, 1 << 16, (F.nlimbs, cols), generator=gen, dtype=torch.int32).to(card)
-    rb = torch.randint(0, 1 << 16, (F.nlimbs, cols), generator=gen, dtype=torch.int32).to(card)
-    assert torch.equal(lab.kernel(form)(ra, rb), lab.body(form)(ra, rb))
-    # row slices of a wider operand take the kernel's row stride
-    wide = torch.cat([a, a], dim=1)
-    assert torch.equal(lab.kernel(form)(wide[:, cols:], b), got)
+    check = range(cols) if cols < 5000 else range(0, cols, 997)
+    out = F.unpack(got, mont=False)
+    assert [out[i] for i in check] == [xs[i] * ys[i] * rinv % p for i in check]
 
 
 def test_lab_wrapper_contract(card):
@@ -390,8 +398,8 @@ def test_lab_wrapper_contract(card):
             k(lab, a.t().contiguous().t(), a)
         with pytest.raises(ValueError, match="shapes differ"):
             k(lab, a, a[:, :2])
-        with pytest.raises(ValueError, match="threads"):
-            k(lab, a, a, threads=1024)
+        with pytest.raises(ValueError, match="warps"):
+            k(lab, a, a, warps=16)
         before = k.launches
         assert lab.F.unpack(k(lab, a, lab.F.pack([2, 2, 2]))) == [6, 8, 10]
         assert k.launches == before + 1

@@ -113,13 +113,13 @@ def test_kernel_methods_take_the_plain_body_on_the_cpu():
     a, b = operands(lab.F, "canonical")
     before = (lab_cios_fullwidth.launches, lab_separated.launches)
     for form in ("cios_fullwidth", "separated"):
-        for threads in (64, 512):
-            assert torch.equal(lab.kernel(form, threads)(a, b), lab.body(form)(a, b))
+        for warps in (1, 4):
+            assert torch.equal(lab.kernel(form, warps)(a, b), lab.body(form)(a, b))
     assert (lab_cios_fullwidth.launches, lab_separated.launches) == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         lab_cios_fullwidth(lab, a, b)
-    with pytest.raises(ValueError, match="threads"):
-        lab_separated(lab, a, b, threads=96)
+    with pytest.raises(ValueError, match="warps"):
+        lab_separated(lab, a, b, warps=3)
 
 
 def test_validate_passes_every_cpu_candidate():

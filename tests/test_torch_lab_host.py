@@ -1,13 +1,19 @@
 """Kernels B3a and B3b's arithmetic, compiled for the host.
 
-csrc/lab_mont.cuh keeps the per-column routines of the kernel lab's two
-Hopper kernels in `__host__ __device__` functions. Here a host C++ compiler
-builds that same header behind a small C loop over columns, called through
-ctypes, and both routines are held against the port's plain lab bodies and
-Python integers on 4096 seeded canonical columns plus edge columns, and
-against the plain bodies on raw 16-bit digits, for 16 and 24 limbs. The
-launch around them (grid, block sizes, stream, error check) runs only on
-the card: tests/test_torch_cuda.py and chip_smoke.py.
+csrc/lab_mont.cuh keeps the arithmetic of the kernel lab's two Hopper
+kernels in `__host__ __device__` functions, each card intrinsic (__dp4a,
+__byte_perm, __funnelshift_r) with its host twin, and B3b's warp (its lanes
+stepped one after another between the exchanges, each tensor-core mma.sync
+by `mma_u8_host` on the same fragment registers) in
+`lab_separated_warp_host`. Here a host C++ compiler builds that same header
+behind a small C loop over the kernels' blocks and warps, called through
+ctypes, and both formulations are held against the port's plain lab bodies
+and Python integers on 4096 seeded canonical columns plus edge columns, and
+against the plain bodies on raw 16-bit digits, for 16 and 24 limbs, at
+every instance (warps per block); B3b's fragment table is held against the
+constants p and p' it encodes. The launch around them (grid, stream, shared
+memory, error check) runs only on the card: tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 
 import ctypes
@@ -21,6 +27,7 @@ import pytest
 import torch
 
 from handel_tpu.ops import bls12_381_ref
+from handel_tpu_torch.kernels.lab_mont import DEFAULT_WARPS, WARPS, separated_fragments, tile_live
 from handel_tpu_torch.ops import bn254_ref as bn
 from handel_tpu_torch.ops.fp import Field
 from handel_tpu_torch.scripts.fp_kernel_lab import LabField
@@ -34,33 +41,45 @@ FORMS = {"cios_fullwidth": 0, "separated": 1}
 SHIM = r"""
 #include "lab_mont.cuh"
 
+// the kernels' grid: block blk, warp w covers columns (blk warps + w) 32 ..
 template <int N>
 static void run(int form, const int32_t* a, int64_t lda, const int32_t* b,
                 int64_t ldb, int32_t* out, int64_t ldo, int64_t cols,
-                const handel::LabParams& prm) {
-  for (int64_t j = 0; j < cols; ++j) {
-    if (form == 0)
-      handel::lab_mont_column<N, 0>(a, lda, b, ldb, out, ldo, j, prm);
-    else
-      handel::lab_mont_column<N, 1>(a, lda, b, ldb, out, ldo, j, prm);
-  }
+                const handel::LabParams& prm, const uint32_t* frags, int warps) {
+  const int64_t blocks = (cols + 32 * warps - 1) / (32 * warps);
+  for (int64_t blk = 0; blk < blocks; ++blk)
+    for (int w = 0; w < warps; ++w) {
+      const int64_t col0 = (blk * warps + w) * 32;
+      if (col0 >= cols) continue;
+      if (form == 1) {
+        handel::lab_separated_warp_host<N>(a, lda, b, ldb, out, ldo, col0, cols, frags, prm);
+        continue;
+      }
+      for (int64_t j = col0; j < col0 + 32 && j < cols; ++j) {
+        uint32_t x[N], y[N], r[N];
+        handel::lab_load_column<N>(a, lda, j, x);
+        handel::lab_load_column<N>(b, ldb, j, y);
+        handel::lab_cios_fullwidth<N>(x, y, prm, r);
+        handel::lab_store_column<N>(out, ldo, j, r);
+      }
+    }
 }
 
 extern "C" void host_lab_mont_mul(int form, const int32_t* a, int64_t lda,
                                   const int32_t* b, int64_t ldb, int32_t* out,
                                   int64_t ldo, int64_t cols, int nlimbs16,
-                                  const uint32_t* p, const uint32_t* pprime,
-                                  uint32_t n0) {
-  handel::LabParams prm = {};
-  for (int k = 0; k < nlimbs16; ++k) {
-    prm.p[k] = p[k];
-    prm.pprime[k] = pprime[k];
-  }
-  prm.n0 = n0;
+                                  const uint32_t* p, uint32_t n0,
+                                  const uint32_t* frags, int warps) {
+  const handel::LabParams prm = handel::lab_params(nlimbs16, p, n0);
   if (nlimbs16 == 16)
-    run<16>(form, a, lda, b, ldb, out, ldo, cols, prm);
+    run<16>(form, a, lda, b, ldb, out, ldo, cols, prm, frags, warps);
   else
-    run<24>(form, a, lda, b, ldb, out, ldo, cols, prm);
+    run<24>(form, a, lda, b, ldb, out, ldo, cols, prm, frags, warps);
+}
+
+// B3b's fragment tiles for a field of nlimbs16 digits
+extern "C" int host_lab_tiles(int nlimbs16) {
+  return handel::sep_tile_index(nlimbs16, 3, 0, 0);
 }
 """
 
@@ -82,21 +101,25 @@ def host_lib(tmp_path_factory):
     lib.host_lab_mont_mul.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int,
     ]
     lib.host_lab_mont_mul.restype = None
+    lib.host_lab_tiles.argtypes = [ctypes.c_int]
+    lib.host_lab_tiles.restype = ctypes.c_int
     return lib
 
 
-def host_mul(lib, lab, form, a, b, cols):
+def host_mul(lib, lab, form, a, b, cols, warps=DEFAULT_WARPS):
     """One formulation over the first `cols` columns of row-strided
-    (n, >= cols) int32 tensors, through the kernel header."""
+    (n, >= cols) int32 tensors, through the kernel header, on the grid of
+    the instance with `warps` warps a block."""
     out = torch.empty((lab.n, cols), dtype=torch.int32)
     p = (ctypes.c_uint32 * lab.n)(*lab.p_limbs)
-    pprime = (ctypes.c_uint32 * lab.n)(*lab.pprime_limbs)
+    frags = np.ascontiguousarray(separated_fragments(lab.n, lab.p_limbs, lab.pprime_limbs))
     lib.host_lab_mont_mul(
         FORMS[form], a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-        out.data_ptr(), out.stride(0), cols, lab.n, p, pprime, lab.n0,
+        out.data_ptr(), out.stride(0), cols, lab.n, p, lab.n0,
+        frags.ctypes.data, warps,
     )
     return out
 
@@ -138,3 +161,76 @@ def test_lab_header_matches_plain_on_raw_digits(host_lib, p, form):
     got = host_mul(host_lib, lab, form, a, b, COLS)
     assert torch.equal(got, lab.body(form)(a, b))
     assert bool(((got >= 0) & (got < 1 << 16)).all())
+
+
+@pytest.mark.parametrize("warps", WARPS)
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("p", [bn.P, bls12_381_ref.P], ids=["bn254", "bls12_381"])
+def test_lab_header_instances_match_plain(host_lib, p, form, warps):
+    """Every instance's grid at widths ragged around its block and warp
+    tile, on canonical columns (against the plain body and integers) and on
+    raw 16-bit digits (against the plain body)."""
+    F = Field(p, device="cpu")
+    lab = LabField(F)
+    rng = np.random.default_rng(warps + 10 * len(form))
+    cols = 32 * warps * 2 + 31
+    xs = [int(v) for v in rng.integers(0, 1 << 62, cols)]
+    xs = [(x * x + 7) % p for x in xs]
+    ys = xs[::-1]
+    a, b = F.pack(xs, mont=False), F.pack(ys, mont=False)
+    for width in (1, 7, 33, 32 * warps - 1, 32 * warps + 1, cols):
+        got = host_mul(host_lib, lab, form, a, b, width, warps)
+        assert torch.equal(got, lab.body(form)(a[:, :width], b[:, :width])), width
+    rinv = pow(F.mont_r, -1, p)
+    assert F.unpack(got, mont=False) == [x * y * rinv % p for x, y in zip(xs, ys)]
+    ra = torch.from_numpy(rng.integers(0, 1 << 16, (F.nlimbs, cols)).astype(np.int32))
+    rb = torch.from_numpy(rng.integers(0, 1 << 16, (F.nlimbs, cols)).astype(np.int32))
+    ra[:, 3] = rb[:, 3] = 0xFFFF
+    assert torch.equal(host_mul(host_lib, lab, form, ra, rb, cols, warps), lab.body(form)(ra, rb))
+
+
+@pytest.mark.parametrize("p", [bn.P, bls12_381_ref.P], ids=["bn254", "bls12_381"])
+def test_fragment_table_reproduces_the_constants(host_lib, p):
+    """B3b's fragment table, read back through the mma.sync A-fragment
+    layout, is the Toeplitz byte matrix of p' (rows: byte positions below
+    2n) and of p (below 4n): against the bytes of x it gives x p' mod R and
+    x p; its size is the header's tile count."""
+    F = Field(p, device="cpu")
+    lab = LabField(F)
+    n = lab.n
+    table = separated_fragments(n, lab.p_limbs, lab.pprime_limbs).view(np.uint32)
+    assert table.size == 128 * host_lib.host_lab_tiles(n)
+    mats = [np.zeros((2 * n, 64), np.int64), np.zeros((4 * n, 64), np.int64)]
+    seen = [np.zeros_like(m, dtype=bool) for m in mats]
+    tile = 0
+    for prod, mat in enumerate(mats):
+        for mt in range(mat.shape[0] // 16):
+            for ks in range((2 * n + 31) // 32):
+                if not tile_live(n, mt, ks):
+                    continue
+                words = table[128 * tile: 128 * (tile + 1)].reshape(32, 4)
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for r in range(4):
+                        pos = 16 * mt + 2 * g + (r & 1)
+                        for j in range(4):
+                            k = 32 * ks + 16 * (r >> 1) + 4 * t + j
+                            mat[pos, k] = (int(words[lane, r]) >> (8 * j)) & 0xFF
+                            seen[prod][pos, k] = True
+                tile += 1
+    assert tile * 128 == table.size
+    R = 1 << (16 * n)
+    rng = random.Random(n)
+    for x in [1, R - 1] + [rng.randrange(R) for _ in range(8)]:
+        xb = [(x >> (8 * k)) & 0xFF for k in range(2 * n)] + [0] * (64 - 2 * n)
+        for mat, c, mod in ((mats[0], lab.pprime, R), (mats[1], p, None)):
+            sums = [sum(int(mat[pos, k]) * xb[k] for k in range(64)) for pos in range(mat.shape[0])]
+            v = sum(s << (8 * pos) for pos, s in enumerate(sums))
+            assert (v % mod == x * c % mod) if mod else v == x * c
+    # every nonzero entry of the full Toeplitz matrices lies in a stored tile
+    for prod, c in ((0, lab.pprime), (1, p)):
+        cb = [(c >> (8 * k)) & 0xFF for k in range(2 * n)]
+        for pos in range(mats[prod].shape[0]):
+            for k in range(2 * n):
+                if 0 <= pos - k < 2 * n and cb[pos - k]:
+                    assert seen[prod][pos, k] and mats[prod][pos, k] == cb[pos - k]
